@@ -1,0 +1,146 @@
+"""The render path's configuration as a plain Python dict.
+
+Counterpart of `gsavatar/config/config.py` for what the render path reads:
+the defaults of `configs/config.yaml` composed with its default groups
+(`pose_correction/direct`, `texture/shallow_mlp`, `rigid/skinning_field`,
+`non_rigid/hashgrid`, `option/iter15k`) and `dataset/synthetic.yaml`, with
+the `${...}` interpolations resolved. Written out as a dict so that the port
+needs no YAML parser. `load_config(["a.b.c=value", ...])` applies dotted
+overrides; values are read as Python literals (`[540,540]`, `['0']`, `0.1`)
+or the words `true`/`false`/`null`."""
+from __future__ import annotations
+
+import ast
+import copy
+from typing import Iterable, Optional
+
+DEFAULTS = {
+    'model': {
+        'gaussian': {
+            'use_sh': False,
+            'sh_degree': 3,
+            'feature_dim': 32,
+            'capacity': 262144,
+        },
+        'pose_correction': {'name': 'direct', 'delay': 5000},
+        'deformer': {
+            'rigid': {
+                'name': 'skinning_field',
+                'distill': False,
+                'd_out': 25,
+                'soft_blend': 20,
+                'skinning_network': {
+                    'n_neurons': 128,
+                    'n_hidden_layers': 4,
+                    'skip_in': [],
+                    'cond_in': [],
+                    'multires': 0,
+                },
+            },
+            'non_rigid': {
+                'name': 'hashgrid',
+                'scale_offset': 'logit',
+                'rot_offset': 'mult',
+                'delay': 3000,
+                'feature_dim': 16,
+                'latent_dim': 0,
+                'pose_encoder': {
+                    'num_joints': 24,
+                    'rel_joints': False,
+                    'dim_per_joint': 6,
+                    'out_dim': -1,
+                },
+                'hashgrid': {
+                    'n_levels': 16,
+                    'n_features_per_level': 2,
+                    'log2_hashmap_size': 16,
+                    'base_resolution': 16,
+                    'per_level_scale': 1.447269237440378,
+                    'max_resolution': 2048,
+                },
+                'mlp': {
+                    'n_neurons': 128,
+                    'n_hidden_layers': 3,
+                    'skip_in': [],
+                    'cond_in': [0],
+                    'multires': 0,
+                },
+            },
+        },
+        'texture': {
+            'name': 'mlp',
+            'feature_dim': 32,
+            'use_xyz': False,
+            'use_cov': False,
+            'use_normal': False,
+            'sh_degree': 3,
+            'non_rigid_dim': 16,
+            'latent_dim': 16,
+            'cano_view_dir': True,
+            'mlp': {
+                'n_neurons': 64,
+                'n_hidden_layers': 2,
+                'skip_in': [],
+                'cond_in': [],
+                'multires': 0,
+            },
+        },
+    },
+    'dataset': {
+        'name': 'synthetic',
+        'train_smpl': True,
+        'padding': 0.1,
+        'white_background': False,
+        'n_verts': 2048,
+        'n_points': 8192,
+        'train_views': ['0', '1'],
+        'val_views': ['2'],
+        'train_frames': [0, 8, 1],
+        'val_frames': [0, 1, 1],
+        'test_frames': {'view': [0, 8, 4], 'video': [0, 8, 1],
+                        'all': [0, 8, 1]},
+        'predict_frames': [0, 0, 1],
+        'img_hw': [256, 256],
+        'seed': 0,
+    },
+    'opt': {'iterations': 15000},
+    'rasterizer': {'max_pairs': 2097152, 'max_rect': 8},
+}
+
+# the bench shape of the JAX package (bench.py:248-258): the synthetic
+# avatar at 540x540 with 50,000 Gaussians in an arena of 131072
+BENCH_OVERRIDES = (
+    "dataset.img_hw=[540,540]",
+    "dataset.n_verts=4096",
+    "dataset.n_points=50000",
+    "dataset.train_frames=[0,4,1]",
+    "model.gaussian.capacity=131072",
+    "rasterizer.max_pairs=2097152",
+    "rasterizer.max_rect=8",
+)
+
+_WORDS = {'true': True, 'false': False, 'null': None, 'none': None}
+
+
+def _parse(value: str):
+    if value.lower() in _WORDS:
+        return _WORDS[value.lower()]
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        return value
+
+
+def load_config(overrides: Optional[Iterable[str]] = None) -> dict:
+    """A fresh copy of DEFAULTS with `dotted.key=value` overrides applied."""
+    cfg = copy.deepcopy(DEFAULTS)
+    for ov in overrides or ():
+        if '=' not in ov:
+            raise ValueError(f"override must be key=value: {ov}")
+        key, value = ov.split('=', 1)
+        node = cfg
+        parts = key.split('.')
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _parse(value)
+    return cfg

@@ -1,0 +1,64 @@
+"""Carry weights from the JAX package's state to the port.
+
+Takes the JAX state as numpy trees (the caller does the `np.asarray` on
+the JAX side, so this module imports no JAX) and returns the port's:
+
+* `converter_state(conv_params['params'])`: the GaussianConverter state
+  dict. A flax path maps onto a module path by name: `Dense_0` levels drop
+  out, `kernel` (in, out) becomes `weight` (out, in), `embedding` becomes
+  `weight`, and the pose encoder's `layers_{j}_{k}` becomes `layers.{j}.{k}`.
+  The hash `table` (L, 2^16, 2), the latent embeddings and the
+  pose-correction tables map by path unchanged.
+* `arena(gauss_params, gauss_aux)`: GaussianParams / GaussianAux from the
+  JAX package's, their leaves numpy arrays."""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from gsavatar_torch.core.gaussians import GaussianAux, GaussianParams
+
+_LAYERS = re.compile(r'^layers_(\d+)_(\d+)$')
+
+
+def _walk(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def converter_state(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax `conv_params['params']` (numpy leaves) -> state dict."""
+    out = {}
+    for path, leaf in _walk(params):
+        arr = np.asarray(leaf, np.float32)
+        names = []
+        for p in path:
+            if p == 'Dense_0':
+                continue
+            m = _LAYERS.match(p)
+            names.extend(('layers',) + m.groups() if m else (p,))
+        if names[-1] == 'kernel':
+            names[-1] = 'weight'
+            arr = arr.T
+        elif names[-1] == 'embedding':
+            names[-1] = 'weight'
+        out['.'.join(names)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def arena(gauss_params, gauss_aux):
+    """JAX GaussianParams / GaussianAux (numpy leaves) -> the port's."""
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))
+    params = GaussianParams(**{
+        k: t(getattr(gauss_params, k))
+        for k in ('xyz', 'features_dc', 'features_rest', 'scaling',
+                  'rotation', 'opacity')})
+    aux = GaussianAux(alive=torch.from_numpy(
+        np.array(gauss_aux.alive, bool)))
+    return params, aux

@@ -1,0 +1,123 @@
+"""Inference scene: render frames of an avatar from its state.
+
+Counterpart of `gsavatar/inference.py:InferenceScene`. The scene is built
+from a state (the Gaussian arena and the converter's parameters) and the
+subject's metadata, instead of an orbax checkpoint: checkpoints come with
+the scene/checkpoint slice. `init_state` makes a state from the port's own
+seeded initialisation (arena from the dataset's point cloud, converter
+weights from a torch.Generator seeded through numpy); `synthetic_scene`
+puts the two together for the synthetic avatar."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gsavatar_torch.camera.camera import Camera
+from gsavatar_torch.config import load_config
+from gsavatar_torch.core import gaussians as G
+from gsavatar_torch.data.synthetic import SyntheticDataset
+from gsavatar_torch.device import resolve_device
+from gsavatar_torch.models.converter import build_converter, compute_nr_cache
+from gsavatar_torch.ops.rasterizer import RasterizeConfig
+from gsavatar_torch.renderer import RenderPackage, render
+
+
+@dataclasses.dataclass
+class AvatarState:
+    gauss_params: G.GaussianParams
+    gauss_aux: G.GaussianAux
+    converter: Dict[str, torch.Tensor]  # GaussianConverter state dict
+
+
+def torch_generator(seed: int) -> torch.Generator:
+    """A CPU generator whose seed numpy derives from `seed`."""
+    state = np.random.SeedSequence(seed).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def init_state(cfg: dict, dataset, seed: int = 0,
+               device=None) -> AvatarState:
+    """A fresh avatar: the arena seeded from `dataset.readPointCloud()` and
+    converter weights drawn from `torch_generator(seed)`."""
+    dev = resolve_device(device)
+    g = cfg['model']['gaussian']
+    points, colors = dataset.readPointCloud()
+    params, aux = G.create_from_pcd(
+        points, colors, int(g['capacity']), bool(g['use_sh']),
+        int(g['sh_degree']), int(g['feature_dim']), device=dev)
+    converter = build_converter(cfg, dataset.metadata, dataset.assets,
+                                generator=torch_generator(seed))
+    return AvatarState(params, aux, converter.state_dict())
+
+
+def raster_config_from(cfg: dict) -> RasterizeConfig:
+    h, w = cfg['dataset']['img_hw']
+    r = cfg['rasterizer']
+    return RasterizeConfig(width=int(w), height=int(h),
+                           max_pairs=int(r['max_pairs']),
+                           max_rect=int(r['max_rect']))
+
+
+class InferenceScene:
+    def __init__(self, cfg: dict, metadata: dict, assets, state: AvatarState,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        gcfg = cfg['model']['gaussian']
+        self.use_sh = bool(gcfg['use_sh'])
+        self.max_sh_degree = int(gcfg['sh_degree'])
+        self.raster_config = raster_config_from(cfg)
+        white = cfg['dataset'].get('white_background', False)
+        self.background = torch.full((3,), 1.0 if white else 0.0,
+                                     device=self.device)
+        self.converter = build_converter(cfg, metadata, assets)
+        self.converter.load_state_dict(state.converter)
+        self.converter.to(self.device).eval()
+        self.gauss_params = state.gauss_params.map(
+            lambda x: x.to(self.device))
+        self.gauss_aux = G.GaussianAux(alive=state.gauss_aux.alive.to(
+            self.device))
+        # render only the alive prefix when the alive slots form one
+        alive = self.gauss_aux.alive.cpu()
+        n_alive = int(alive.sum())
+        self.bucket = n_alive if bool(alive[:n_alive].all()) else 0
+        self._nr_cache = None
+
+    def view(self) -> G.Gaussians:
+        return G.make_view(
+            self.gauss_params, self.gauss_aux,
+            active_sh_degree=self.max_sh_degree if self.use_sh else 0,
+            max_sh_degree=self.max_sh_degree, use_sh=self.use_sh,
+            bucket=self.bucket)
+
+    @torch.inference_mode()
+    def render_frame(self, camera, iteration: Optional[int] = None
+                     ) -> RenderPackage:
+        """Render one camera (its tensors on this scene's device) at
+        `iteration`, by default the config's last training iteration."""
+        it = iteration if iteration is not None \
+            else int(self.cfg['opt']['iterations'])
+        gview = self.view()
+        if self._nr_cache is None:
+            # canonical positions are frozen at inference: encode once
+            self._nr_cache = compute_nr_cache(self.converter, gview)
+        return render(self.converter, gview, camera, it, self.raster_config,
+                      self.background, nr_cache=self._nr_cache)
+
+
+def synthetic_scene(overrides: Sequence[str] = (), seed: int = 0,
+                    device=None) -> Tuple[InferenceScene, List[Camera]]:
+    """The synthetic avatar (config defaults plus dotted `overrides`) with
+    weights from `init_state(seed)`, and the cameras of its predict split.
+    The state is made on the CPU and then moved, so that two scenes of one
+    seed on two devices hold the same values."""
+    cfg = load_config(overrides)
+    train = SyntheticDataset(cfg['dataset'], 'train')
+    predict = SyntheticDataset(cfg['dataset'], 'predict')
+    state = init_state(cfg, train, seed=seed, device='cpu')
+    scene = InferenceScene(cfg, train.metadata, train.assets, state,
+                           device=device)
+    return scene, [predict[i] for i in range(len(predict))]

@@ -1,0 +1,52 @@
+"""render(): the whole per-frame forward pass.
+
+Counterpart of `gsavatar/renderer.py:render` at eval: the converter moves
+and colours the canonical Gaussians, then the rasterizer draws them with
+precomputed colours and covariances. One rasterizer pass gives both the
+colour image and the opacity image. The stages carry `record_function`
+spans (`render/converter` here, `rasterize/*` in the rasterizer) that
+`python -m gsavatar_torch.profile_render` reads."""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from gsavatar_torch.core.gaussians import Gaussians
+from gsavatar_torch.ops.rasterizer import RasterizeConfig, rasterize
+
+
+class RenderPackage(NamedTuple):
+    render: torch.Tensor             # (H, W, 3)
+    opacity_render: torch.Tensor     # (H, W)
+    visibility_filter: torch.Tensor  # (N,) bool
+    radii: torch.Tensor              # (N,) int32
+    loss_reg: dict
+    deformed_gaussians: Any          # Gaussians
+    colors: torch.Tensor             # (N, 3)
+    pair_overflow: int
+    rect_dropped: int
+    n_pairs: int
+    max_rect_side: torch.Tensor      # () int32
+
+
+def render(converter, gaussians: Gaussians, camera, iteration: int,
+           raster_config: RasterizeConfig, background, *,
+           nr_cache=None) -> RenderPackage:
+    with record_function('render/converter'):
+        deformed, loss_reg, colors = converter(gaussians, camera, iteration,
+                                               nr_cache=nr_cache)
+    res = rasterize(
+        deformed.get_xyz, colors, deformed.get_opacity,
+        deformed.get_covariance(),
+        viewmatrix=camera.world_view_transform,
+        full_projmatrix=camera.full_proj_transform,
+        tanfovx=camera.tanfovx, tanfovy=camera.tanfovy,
+        background=background, config=raster_config, active=deformed.alive)
+    return RenderPackage(
+        render=res.image, opacity_render=res.alpha,
+        visibility_filter=res.radii > 0, radii=res.radii, loss_reg=loss_reg,
+        deformed_gaussians=deformed, colors=colors,
+        pair_overflow=res.pair_overflow, rect_dropped=res.rect_dropped,
+        n_pairs=res.n_pairs, max_rect_side=res.max_rect_side)

@@ -1,0 +1,96 @@
+"""The port stands alone: gsavatar_torch and chip_smoke.py import nothing of
+JAX or of the JAX package, no module builds or imports a GPU toolchain at
+import time, and the entry points refuse to run without a GPU unless the
+caller asks for the CPU."""
+import ast
+import importlib
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gsavatar')
+PORT_FILES = sorted((ROOT / 'gsavatar_torch').rglob('*.py')) + [
+    ROOT / 'chip_smoke.py']
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ''
+
+
+@pytest.mark.parametrize('path', PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_pulls_in_no_jax_triton_or_build():
+    """Importing every module of the port, in a fresh interpreter, loads
+    no JAX, no gsavatar, no triton, and compiles nothing."""
+    code = (
+        "import importlib, pkgutil, sys, gsavatar_torch\n"
+        "for m in pkgutil.walk_packages(gsavatar_torch.__path__, "
+        "'gsavatar_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN + ('triton',)!r})\n"
+        "print(bad)\n")
+    build = ROOT / 'build'
+    before = sorted(build.iterdir()) if build.exists() else []
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '[]'
+    after = sorted(build.iterdir()) if build.exists() else []
+    assert after == before
+
+
+def _tiny_setup():
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.data.synthetic import SyntheticDataset
+    cfg = load_config(["dataset.img_hw=[32,32]", "dataset.n_verts=256",
+                       "dataset.n_points=128", "dataset.train_frames=[0,1,1]",
+                       "model.gaussian.capacity=256"])
+    return cfg, SyntheticDataset(cfg['dataset'], 'train')
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU refusal cannot be shown")
+    from gsavatar_torch.device import resolve_device
+    from gsavatar_torch.inference import InferenceScene, init_state
+    cfg, ds = _tiny_setup()
+    with pytest.raises(RuntimeError, match='GPU'):
+        resolve_device()
+    with pytest.raises(RuntimeError, match='GPU'):
+        init_state(cfg, ds)
+    state = init_state(cfg, ds, device='cpu')
+    with pytest.raises(RuntimeError, match='GPU'):
+        InferenceScene(cfg, ds.metadata, ds.assets, state)
+    scene = InferenceScene(cfg, ds.metadata, ds.assets, state, device='cpu')
+    assert scene.device.type == 'cpu'
+
+
+def test_k1_wrapper_takes_plain_version_only_for_cpu_tensors():
+    from gsavatar_torch.ops.rasterizer import composite
+    pair_data = torch.zeros((0, 12))
+    tile_start = torch.zeros(2, dtype=torch.int32)
+    before = composite.composite_pairs_fwd.launches
+    out = composite.composite_pairs_fwd(pair_data, tile_start, 1)
+    assert out.shape == (1, 8, 256)
+    assert float(out[0, 4].min()) == 1.0           # empty tile: T = 1
+    assert composite.composite_pairs_fwd.launches == before
+    with pytest.raises(ValueError):
+        composite.composite_pairs_fwd(pair_data.to('meta'),
+                                      tile_start.to('meta'), 1)

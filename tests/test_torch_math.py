@@ -1,0 +1,215 @@
+"""gsavatar_torch's math leaves, camera and synthetic data against
+gsavatar's: the same numpy inputs through both, f32 on the CPU.
+
+Tolerance 1e-6 relative (with a 1e-6 absolute floor for values near 0):
+the functions are elementwise or short fixed-order sums, which the two
+frameworks round alike up to an ulp or two."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import TINY, close
+
+from gsavatar_torch import config as tconfig
+from gsavatar_torch.camera.camera import make_camera as t_make_camera
+from gsavatar_torch.data.synthetic import SyntheticDataset as TSynthetic
+from gsavatar_torch.ops import sh as tsh
+from gsavatar_torch.ops.rasterizer import project as tproject
+from gsavatar_torch.smpl import lbs as tlbs
+from gsavatar_torch.smpl import vitruvian as tvit
+from gsavatar_torch.smpl.body_model import synthetic_assets as t_assets
+from gsavatar_torch.utils import transforms as TT
+
+from gsavatar.camera.camera import make_camera as j_make_camera
+from gsavatar.config import load_config as j_load_config
+from gsavatar.data.synthetic import SyntheticDataset as JSynthetic
+from gsavatar.ops import sh as jsh
+from gsavatar.ops.rasterizer import project as jproject
+from gsavatar.smpl import lbs as jlbs
+from gsavatar.smpl import vitruvian as jvit
+from gsavatar.smpl.body_model import synthetic_assets as j_assets
+from gsavatar.utils import transforms as JT
+
+RTOL, ATOL = 1e-6, 1e-6
+rng = np.random.default_rng(0)
+Q = rng.normal(size=(64, 4)).astype(np.float32)
+Q2 = rng.normal(size=(64, 4)).astype(np.float32)
+S = rng.uniform(0.01, 0.2, (64, 3)).astype(np.float32)
+M = rng.normal(size=(64, 3, 3)).astype(np.float32)
+M2 = rng.normal(size=(64, 3, 3)).astype(np.float32)
+V = rng.normal(size=(64, 3)).astype(np.float32)
+AA = rng.normal(scale=0.7, size=(64, 3)).astype(np.float32)
+U = rng.uniform(0.05, 0.95, (64, 1)).astype(np.float32)
+
+CASES = {
+    'inverse_sigmoid': (lambda m: m.inverse_sigmoid, (U,)),
+    'quat_normalize': (lambda m: m.quat_normalize, (Q,)),
+    'quat_to_rotmat': (lambda m: m.quat_to_rotmat, (Q,)),
+    'quat_multiply': (lambda m: m.quat_multiply, (Q, Q2)),
+    'matvec3': (lambda m: m.matvec3, (M, V)),
+    'matmul3': (lambda m: m.matmul3, (M, M2)),
+    'build_scaling_rotation': (lambda m: m.build_scaling_rotation, (S, Q)),
+    'strip_symmetric': (lambda m: m.strip_symmetric, (M,)),
+    'covariance_quat': (lambda m: lambda s, q: m.covariance_from_scaling_rotation(
+        s, 1.3, q), (S, Q)),
+    'covariance_matrix': (lambda m: lambda s, r: m.covariance_from_scaling_rotation(
+        s, 1.0, r), (S, M)),
+    'rodrigues': (lambda m: m.rodrigues, (AA,)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_transforms(name):
+    pick, args = CASES[name]
+    want = pick(JT)(*[jnp.asarray(a) for a in args])
+    got = pick(TT)(*[torch.from_numpy(a) for a in args])
+    close(got, want, RTOL, ATOL, name)
+
+
+def test_euler_z():
+    for deg in (45.0, -45.0, 17.5):
+        np.testing.assert_array_equal(TT.euler_z(deg), JT.euler_z(deg))
+
+
+@pytest.mark.parametrize('deg', [0, 1, 2, 3, 4])
+def test_sh_bases(deg):
+    d = V / np.linalg.norm(V, axis=1, keepdims=True)
+    close(tsh.eval_sh_bases(deg, torch.from_numpy(d)),
+          jsh.eval_sh_bases(deg, jnp.asarray(d)), RTOL, ATOL)
+
+
+def _assets():
+    return j_assets(n_verts=300, seed=5), t_assets(n_verts=300, seed=5)
+
+
+def test_synthetic_assets_identical():
+    ja, ta = _assets()
+    for f in ('v_template', 'shapedirs', 'posedirs', 'J_regressor',
+              'skinning_weights', 'faces', 'parents'):
+        np.testing.assert_array_equal(getattr(ta, f), getattr(ja, f), f)
+
+
+def test_lbs_and_vitruvian():
+    ja, _ = _assets()
+    pose = rng.normal(scale=0.2, size=(1, 72)).astype(np.float32)
+    betas = rng.normal(scale=0.5, size=(1, 10)).astype(np.float32)
+    args = (betas, pose, ja.v_template[None], ja.shapedirs, ja.posedirs,
+            ja.J_regressor)
+    want = jlbs.lbs(*[jnp.asarray(a) for a in args], ja.parents,
+                    jnp.asarray(ja.skinning_weights))
+    got = tlbs.lbs(*[torch.from_numpy(a) for a in args], ja.parents,
+                   torch.from_numpy(ja.skinning_weights))
+    for i, (g, w) in enumerate(zip(got, want)):
+        close(g, w, 1e-5, 1e-6, f'lbs output {i}')
+    J = np.asarray(want[2][0])
+    np.testing.assert_array_equal(tvit.get_02v_bone_transforms(J),
+                                  jvit.get_02v_bone_transforms(J))
+    close(tvit.get_02v_bone_transforms_torch(torch.from_numpy(J)),
+          jvit.get_02v_bone_transforms_jax(jnp.asarray(J)), RTOL, ATOL)
+
+
+def test_synthetic_cameras_and_metadata():
+    jcfg = j_load_config(overrides=["dataset=synthetic"] + TINY).dataset
+    tcfg = tconfig.load_config(TINY)['dataset']
+    for split in ('train', 'predict'):
+        jd, td = JSynthetic(jcfg, split), TSynthetic(tcfg, split)
+        jd._render_gt = lambda *_: (np.zeros((64, 64, 3)), np.zeros((64, 64)))
+        assert len(jd) == len(td)
+        for k in ('smpl_verts', 'Jtr', 'bone_transforms_02v',
+                  'skinning_weights'):
+            close(td.metadata[k], jd.metadata[k], RTOL, ATOL, k)
+        close(td.metadata['aabb'].coord_min, jd.metadata['aabb'].coord_min,
+              0, 0)
+        close(td.metadata['aabb'].coord_max, jd.metadata['aabb'].coord_max,
+              0, 0)
+        assert td.metadata['frame_dict'] == jd.metadata['frame_dict']
+        for i in range(len(jd)):
+            jc, tc = jd[i], td[i]
+            for f in ('world_view_transform', 'full_proj_transform',
+                      'camera_center', 'rots', 'Jtrs', 'bone_transforms'):
+                close(getattr(tc, f), getattr(jc, f), 1e-5, ATOL, f)
+            assert (tc.latent_idx, tc.pose_idx, tc.in_frame_dict) == (
+                int(jc.latent_idx), int(jc.pose_idx), float(jc.in_frame_dict))
+            assert (tc.tanfovx, tc.width, tc.height) == (
+                jc.tanfovx, jc.width, jc.height)
+        if split == 'train':
+            for k in ('root_orient', 'pose_body', 'pose_hand', 'trans',
+                      'betas'):
+                close(np.asarray(td.metadata[k]), np.asarray(jd.metadata[k]),
+                      0, 0, k)
+        jp, tp = jd.readPointCloud(), td.readPointCloud()
+        np.testing.assert_array_equal(tp[0], jp[0])
+
+
+def _projection_scene(n=200, seed=1):
+    r = np.random.default_rng(seed)
+    means = r.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    means[:5, 2] = 2.9  # a few at or behind the near plane
+    q = r.normal(size=(n, 4)).astype(np.float32)
+    s = (0.05 * (0.3 + r.random((n, 3)))).astype(np.float32)
+    cov = np.asarray(JT.covariance_from_scaling_rotation(
+        jnp.asarray(s), 1.0, jnp.asarray(q)))
+    cam = j_make_camera(R=np.eye(3), T=np.array([0.0, 0.0, 3.0]), fovx=0.8,
+                        fovy=0.7, image=np.zeros((72, 88, 3), np.float32),
+                        mask=np.zeros((72, 88), np.float32),
+                        rots=np.zeros((1, 24, 9)), Jtrs=np.zeros((1, 24, 3)),
+                        bone_transforms=np.tile(np.eye(4), (24, 1, 1)))
+    return means, cov, cam
+
+
+def test_project():
+    """EWA projection with dilation, fov clamp, radius and tile rects (a
+    non-square 88x72 image with a partial tile column and row)."""
+    means, cov, cam = _projection_scene()
+    active = np.ones(len(means), bool)
+    active[7] = False
+    args = (means, cov, cam.world_view_transform, cam.full_proj_transform)
+    want = jproject.project(*[jnp.asarray(a) for a in args], cam.tanfovx,
+                            cam.tanfovy, 88, 72, active=jnp.asarray(active))
+    got = tproject.project(*[torch.from_numpy(np.asarray(a)) for a in args],
+                           cam.tanfovx, cam.tanfovy, 88, 72,
+                           active=torch.from_numpy(active))
+    for f in ('means2d', 'depths', 'conics'):
+        vis = np.asarray(want.radii) > 0
+        close(getattr(got, f).numpy()[vis], np.asarray(getattr(want, f))[vis],
+              1e-5, ATOL, f)
+    for f in ('radii', 'rect_min', 'rect_max', 'tiles_touched'):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+    assert 0 < int((np.asarray(want.radii) > 0).sum()) < len(means)
+
+
+def test_make_camera():
+    kw = dict(R=np.eye(3, dtype=np.float32),
+              T=np.array([0.1, -0.2, 3.0], np.float32), fovx=0.8, fovy=0.6,
+              rots=np.zeros((1, 24, 9)), Jtrs=np.zeros((1, 24, 3)),
+              bone_transforms=np.tile(np.eye(4), (24, 1, 1)))
+    jc = j_make_camera(image=np.zeros((40, 50, 3)), mask=np.zeros((40, 50)),
+                       **kw)
+    tc = t_make_camera(width=50, height=40, **kw)
+    for f in ('world_view_transform', 'full_proj_transform', 'camera_center'):
+        close(getattr(tc, f), getattr(jc, f), 0, 0, f)
+
+
+def _leaves(d, prefix=''):
+    for k, v in d.items():
+        if isinstance(v, dict) and k != 'test_frames':
+            yield from _leaves(v, f'{prefix}{k}.')
+        else:
+            yield f'{prefix}{k}', v
+
+
+def test_config_matches_yaml_defaults():
+    """Every key of the port's config equals the JAX package's composed
+    config for dataset=synthetic, with overrides applied alike."""
+    ov = ["dataset.img_hw=[540,540]", "model.gaussian.capacity=131072"]
+    want = j_load_config(overrides=["dataset=synthetic"] + ov)
+    got = tconfig.load_config(ov)
+    for key, value in _leaves(got):
+        node = want
+        for part in key.split('.'):
+            node = node[part]
+        node = node.to_dict() if hasattr(node, 'to_dict') else node
+        assert value == node, key

@@ -1,0 +1,197 @@
+"""gsavatar_torch's rasterizer against gsavatar's on the CPU: the plain K1
+against the Pallas kernel in interpret mode on the same pair arrays, the
+pair build against the JAX pair build, and `rasterize` against JAX
+`rasterize(backend='xla')` and the float64 golden oracle fixture.
+
+Tolerances: K1 3e-5 absolute (a running product of (1 - alpha) against the
+kernel's exp of a cumulative log1p sum differ in rounding only). The whole
+rasterizer is gated on distribution statistics (mean error < 1e-4 and a
+fraction < 1e-3 of pixels off by > 1e-2, bench.py's parity gates), not the
+per-pixel max: the sort is unstable, so Gaussians with equal quantized
+depth may composite in another order."""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import assert_render_gates, close
+
+from gsavatar_torch.ops.rasterizer import RasterizeConfig as TConfig
+from gsavatar_torch.ops.rasterizer import rasterize as t_rasterize
+from gsavatar_torch.ops.rasterizer.composite import (
+    composite_pairs_fwd, composite_pairs_fwd_plain)
+from gsavatar_torch.ops.rasterizer.pairs import build_pairs as t_build_pairs
+from gsavatar_torch.ops.rasterizer.project import project as t_project
+
+from gsavatar.camera.camera import make_camera
+from gsavatar.ops.rasterizer import RasterizeConfig as JConfig
+from gsavatar.ops.rasterizer import rasterize as j_rasterize
+from gsavatar.ops.rasterizer.pairs import build_pairs as j_build_pairs
+from gsavatar.ops.rasterizer.pallas_composite import (
+    PAIR_LANES, composite_pairs_fwd as j_composite_pairs_fwd)
+from gsavatar.ops.rasterizer.project import project as j_project
+from gsavatar.utils.transforms import covariance_from_scaling_rotation
+
+H = W = 64
+GRID = 4
+FIX = os.path.join(os.path.dirname(__file__), 'fixtures', 'golden_raster.npz')
+
+
+def _camera(h=H, w=W):
+    return make_camera(R=np.eye(3), T=np.array([0.0, 0.0, 3.0]), fovx=0.8,
+                       fovy=0.8, image=np.zeros((h, w, 3), np.float32),
+                       mask=np.zeros((h, w), np.float32),
+                       rots=np.zeros((1, 24, 9)), Jtrs=np.zeros((1, 24, 3)),
+                       bone_transforms=np.tile(np.eye(4), (24, 1, 1)))
+
+
+def _scene(n, seed=0, scale=0.05):
+    """tests/test_pallas_raster.py's random scene, as numpy."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    s = (scale * (0.5 + rng.random((n, 3)))).astype(np.float32)
+    cov = np.asarray(covariance_from_scaling_rotation(
+        jnp.asarray(s), 1.0, jnp.asarray(q)))
+    colors = rng.random((n, 3)).astype(np.float32)
+    opac = rng.uniform(0.3, 0.95, (n, 1)).astype(np.float32)
+    return means, colors, opac, cov
+
+
+def _projections(means, cov, cam):
+    args = (means, cov, cam.world_view_transform, cam.full_proj_transform)
+    j = j_project(*[jnp.asarray(a) for a in args], cam.tanfovx, cam.tanfovy,
+                  W, H)
+    t = t_project(*[torch.from_numpy(np.asarray(a)) for a in args],
+                  cam.tanfovx, cam.tanfovy, W, H)
+    return j, t
+
+
+@pytest.mark.parametrize('n,seed', [(40, 1), (120, 5)])
+def test_plain_k1_matches_pallas_interpret(n, seed):
+    means, colors, opac, cov = _scene(n, seed)
+    _, tp = _projections(means, cov, _camera())
+    pa = t_build_pairs(tp, torch.from_numpy(colors), torch.from_numpy(opac),
+                       GRID, GRID, 2 ** 13)
+    assert pa.n_pairs > 0 and pa.pair_overflow == 0
+    chunk = 32
+    pd = np.zeros((pa.n_pairs + chunk, PAIR_LANES), np.float32)
+    pd[:pa.n_pairs, :12] = pa.pair_data.numpy()
+    want = np.asarray(j_composite_pairs_fwd(
+        jnp.asarray(pd), jnp.asarray(pa.tile_start.numpy()),
+        num_tiles=GRID * GRID, grid_x=GRID, chunk=chunk, interpret=True))
+    got = composite_pairs_fwd(pa.pair_data, pa.tile_start, GRID)
+    assert got.shape == (GRID * GRID, 8, 256)
+    close(got, want, rtol=0, atol=3e-5)
+    assert float(got[:, 3].max()) > 0.5       # some pixels well covered
+    np.testing.assert_array_equal(got[:, 5:].numpy(), 0.0)
+
+
+def test_plain_k1_stops_below_transmittance_floor():
+    """Ten opaque splats on one pixel: the pair that would take T below
+    1e-4 and every pair after it are excluded."""
+    row = [8.0, 8.0, 1.0, 0.0, 1.0, 1.0, 0.5, 0.25, 0.99, 0.0, 0.0, 0.0]
+    pair_data = torch.tensor([row] * 10)
+    tile_start = torch.tensor([0, 10], dtype=torch.int32)
+    out = composite_pairs_fwd_plain(pair_data, tile_start, 1)
+    pix = 8 * 16 + 8
+    # the sequential definition, in f32
+    a = np.float32(0.99)
+    T, acc, kept = np.float32(1.0), np.float32(0.0), 0
+    for _ in range(10):
+        test_T = T * (np.float32(1.0) - a)
+        if test_T < np.float32(1e-4):
+            break
+        acc += a * T
+        T = test_T
+        kept += 1
+    assert 0 < kept < 10
+    close(out[0, 4, pix], T, 1e-6, 0)
+    close(out[0, 0, pix], acc, 1e-6, 0)
+    close(out[0, 3, pix], 1.0 - T, 1e-6, 0)
+
+
+@pytest.mark.parametrize('max_pairs,max_rect', [(2 ** 13, 8), (150, 2)],
+                         ids=['roomy', 'clamped_and_overflowing'])
+def test_build_pairs_matches_jax(max_pairs, max_rect):
+    """Same tile ranges, same sorted keys, the same Gaussians in every tile,
+    the same counters (pair_overflow, rect_dropped)."""
+    means, colors, opac, cov = _scene(60, 3, scale=0.12)
+    jp, tp = _projections(means, cov, _camera())
+    # jitted: op-by-op dispatch compiles every op on its own, ~10x slower
+    jpa = jax.jit(lambda p, c, o: j_build_pairs(
+        p, c, o, GRID, GRID, max_pairs, max_rect=max_rect))(
+        jp, jnp.asarray(colors), jnp.asarray(opac))
+    tpa = t_build_pairs(tp, torch.from_numpy(colors), torch.from_numpy(opac),
+                        GRID, GRID, max_pairs, max_rect=max_rect)
+    assert tpa.n_pairs == int(jpa.n_pairs)
+    assert tpa.pair_overflow == int(jpa.pair_overflow)
+    assert tpa.rect_dropped == int(jpa.rect_dropped)
+    if max_rect == 2:
+        assert tpa.pair_overflow > 0 and tpa.rect_dropped > 0
+    ts = np.asarray(jpa.tile_start)
+    np.testing.assert_array_equal(tpa.tile_start.numpy(), ts)
+    jg = np.asarray(jpa.pair_gauss)
+    for t in range(GRID * GRID):
+        s, e = ts[t], ts[t + 1]
+        assert sorted(tpa.pair_gauss[s:e].tolist()) == sorted(jg[s:e]), t
+    # each row carries its Gaussian's data
+    tile_of_row = np.repeat(np.arange(GRID * GRID), np.diff(ts))
+    order_t = np.lexsort((tpa.pair_gauss.numpy(), tile_of_row))
+    order_j = np.lexsort((jg[:tpa.n_pairs], tile_of_row))
+    close(tpa.pair_data.numpy()[order_t],
+          np.asarray(jpa.pair_data)[:tpa.n_pairs][order_j], 1e-6, 1e-6)
+
+
+def _raster_both(means, colors, opac, cov, cam, bg, max_pairs=2 ** 13):
+    kw = dict(viewmatrix=cam.world_view_transform,
+              full_projmatrix=cam.full_proj_transform, tanfovx=cam.tanfovx,
+              tanfovy=cam.tanfovy)
+    jcfg = JConfig(width=cam.width, height=cam.height, max_pairs=max_pairs,
+                   per_tile_capacity=256, chunk=32, backend='xla')
+    jres = jax.jit(lambda m, c, o, cv, b, vm, pm: j_rasterize(
+        m, c, o, cv, viewmatrix=vm, full_projmatrix=pm, tanfovx=cam.tanfovx,
+        tanfovy=cam.tanfovy, background=b, config=jcfg))(
+        *[jnp.asarray(a) for a in (means, colors, opac, cov, bg,
+                                   kw['viewmatrix'], kw['full_projmatrix'])])
+    tres = t_rasterize(
+        torch.from_numpy(means), torch.from_numpy(colors),
+        torch.from_numpy(opac), torch.from_numpy(np.asarray(cov)),
+        background=torch.from_numpy(bg),
+        config=TConfig(width=cam.width, height=cam.height,
+                       max_pairs=max_pairs),
+        **{k: torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray)
+           else v for k, v in kw.items()})
+    return jres, tres
+
+
+def test_rasterize_matches_jax_xla():
+    means, colors, opac, cov = _scene(200, 7)
+    bg = np.array([0.2, 0.1, 0.3], np.float32)
+    jres, tres = _raster_both(means, colors, opac, cov, _camera(), bg)
+    assert tres.pair_overflow == 0 and int(jres.pair_overflow) == 0
+    assert_render_gates(tres.image.numpy(), jres.image, 'image')
+    assert_render_gates(tres.alpha.numpy(), jres.alpha, 'alpha')
+    np.testing.assert_array_equal(tres.radii.numpy(), np.asarray(jres.radii))
+    assert int(tres.max_rect_side) == int(jres.max_rect_side)
+    assert float(tres.alpha.mean()) > 0.1
+
+
+def test_rasterize_matches_golden_oracle():
+    g = dict(np.load(FIX))
+    f = lambda k: torch.from_numpy(np.asarray(g[k], np.float32))
+    res = t_rasterize(
+        f('means3d'), f('colors'), f('opacities'), f('cov3d'),
+        viewmatrix=f('viewmatrix'), full_projmatrix=f('full_projmatrix'),
+        tanfovx=float(g['tanfovx']), tanfovy=float(g['tanfovy']),
+        background=f('background'),
+        config=TConfig(width=int(g['width']), height=int(g['height']),
+                       max_pairs=2 ** 14))
+    assert res.pair_overflow == 0 and res.rect_dropped == 0
+    assert_render_gates(res.image.numpy(), g['image'], 'image')
+    assert_render_gates(res.alpha.numpy(), g['alpha'], 'alpha')
+    np.testing.assert_array_equal(res.radii.numpy(),
+                                  g['radii'].astype(np.int32))

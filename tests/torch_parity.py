@@ -1,0 +1,132 @@
+"""Shared set-up for the parity tests of gsavatar_torch against gsavatar.
+
+One tiny synthetic avatar (the sizes of tests/test_train_e2e.py) built by
+both packages from the same config, and converter weights drawn with numpy
+from a seed, handed to JAX as a flax tree and to the port through
+`gsavatar_torch.convert`. The JAX side runs on the CPU; its dataset's
+ground-truth render is replaced by zeros (no parity test reads it)."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+TINY = [
+    "dataset.img_hw=[64,64]",
+    "dataset.n_verts=512",
+    "dataset.n_points=768",
+    "dataset.train_frames=[0,2,1]",
+    "dataset.train_views=['0']",
+    "model.gaussian.capacity=1024",
+    "rasterizer.max_pairs=65536",
+]
+ITERATION = 15000  # past every delay gate, as at inference
+
+
+def random_conv_params(shapes, metadata, seed=0):
+    """Numpy converter weights of the flax tree `shapes`: uniform kernels
+    at torch's default scale, larger-than-init hash-table entries (so that
+    their bf16 rounding shows), N(0, 1) latents, pose tables near the
+    dataset's ground truth."""
+    rng = np.random.default_rng(seed)
+    pose_init = {'root_orients': 'root_orient', 'pose_bodys': 'pose_body',
+                 'pose_hands': 'pose_hand', 'trans': 'trans'}
+
+    def leaf(path, s):
+        name = str(getattr(path[-1], 'key', path[-1]))
+        if name == 'kernel':
+            b = 1.0 / np.sqrt(s.shape[0])
+            return rng.uniform(-b, b, s.shape)
+        if name == 'bias':
+            return rng.uniform(-0.1, 0.1, s.shape)
+        if name == 'table':
+            return rng.uniform(-0.05, 0.05, s.shape)
+        if name == 'embedding':
+            return rng.normal(size=s.shape)
+        if name == 'betas':
+            return rng.normal(scale=0.5, size=s.shape)
+        base = np.asarray(metadata[pose_init[name]], np.float64)
+        return base.reshape(s.shape) + rng.normal(scale=0.05, size=s.shape)
+
+    return jax.tree_util.tree_map_with_path(
+        lambda p, s: leaf(p, s).astype(np.float32), shapes)
+
+
+class JaxAvatar:
+    """The JAX package's tiny avatar: datasets, converter, weights, arena,
+    a camera and the hash-grid cache."""
+
+    def __init__(self, frame: int = 1, seed: int = 0):
+        from gsavatar.config import load_config
+        from gsavatar.core import gaussians as G
+        from gsavatar.data.synthetic import SyntheticDataset
+        from gsavatar.models.converter import build_converter, compute_nr_cache
+
+        self.cfg = load_config(overrides=["dataset=synthetic"] + TINY)
+        self.train = SyntheticDataset(self.cfg.dataset, 'train')
+        self.predict = SyntheticDataset(self.cfg.dataset, 'predict')
+        h, w = self.cfg.dataset.img_hw
+        self.predict._render_gt = lambda *_: (
+            np.zeros((h, w, 3), np.float32), np.zeros((h, w), np.float32))
+        self.camera = self.predict[frame]
+        self.converter = build_converter(self.cfg, self.train.metadata,
+                                         assets=self.train.assets)
+        pts, cols = self.train.readPointCloud()
+        g = self.cfg.model.gaussian
+        self.gauss_params, self.gauss_aux = jax.jit(
+            lambda p, c: G.create_from_pcd(p, c, int(g.capacity), False,
+                                           3, int(g.feature_dim)))(
+            jnp.asarray(pts), jnp.asarray(cols))
+        self.gview = G.make_view(self.gauss_params, self.gauss_aux,
+                                 use_sh=False)
+        shapes = jax.eval_shape(lambda: self.converter.init(
+            jax.random.PRNGKey(0), self.gview, self.camera, 0))['params']
+        self.params = random_conv_params(shapes, self.train.metadata, seed)
+        self.variables = {'params': jax.tree.map(jnp.asarray, self.params)}
+        # eagerly, as the JAX package's evaluate and InferenceScene do (under
+        # jit XLA rounds the AABB normalization differently by an ulp)
+        self.nr_cache = compute_nr_cache(self.converter, self.variables,
+                                         self.gview)
+
+
+class TorchAvatar:
+    """The port's tiny avatar, its weights and arena carried over from a
+    JaxAvatar."""
+
+    def __init__(self, ja: JaxAvatar, frame: int = 1):
+        from gsavatar_torch import convert
+        from gsavatar_torch.config import load_config
+        from gsavatar_torch.core import gaussians as G
+        from gsavatar_torch.data.synthetic import SyntheticDataset
+        from gsavatar_torch.inference import AvatarState
+
+        self.cfg = load_config(TINY)
+        self.train = SyntheticDataset(self.cfg['dataset'], 'train')
+        self.predict = SyntheticDataset(self.cfg['dataset'], 'predict')
+        self.camera = self.predict[frame]
+        params, aux = convert.arena(
+            jax.tree.map(np.asarray, ja.gauss_params),
+            jax.tree.map(np.asarray, ja.gauss_aux))
+        self.state = AvatarState(params, aux,
+                                 convert.converter_state(ja.params))
+        self.gview = G.make_view(params, aux, use_sh=False)
+
+
+def close(a, b, rtol, atol, name=''):
+    np.testing.assert_allclose(to_np(a), to_np(b), rtol=rtol, atol=atol,
+                               err_msg=name)
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_render_gates(got, want, name):
+    """bench.py's parity gates: mean error < 1e-4 and a fraction < 1e-3 of
+    pixels off by more than 1e-2."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert d.mean() < 1e-4, (name, d.mean())
+    assert (d > 1e-2).mean() < 1e-3, (name, (d > 1e-2).mean())
