@@ -1,4 +1,5 @@
-"""On-card smoke test of gsavatar_torch's avatar render path.
+"""On-card smoke test of gsavatar_torch's avatar render path and training
+step.
 
     python3 chip_smoke.py
 
@@ -7,30 +8,50 @@ them. Phases, any failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel under gsavatar_torch/csrc, with nvcc;
-3. main path: the synthetic avatar at the bench shape (540x540, 4096
+3. render path: the synthetic avatar at the bench shape (540x540, 4096
    template vertices, 50,000 Gaussians in an arena of 131072, the default
    model config, max_pairs 2^21, max_rect 8), weights from the port's own
    seeded initialisation, 20 frames through the `evaluate` render loop
    (`InferenceScene.render_frame`), with every kernel's launch count set to
    0 just before and read just after; then the per-stage times on one frame;
-4. kernels against their plain versions on the pair arrays of one real
-   frame, with the kernel's time, the plain version's time and the least
-   time the card could take for the same work;
-5. reference: a small avatar rendered on the card and, through the plain
-   path, on the CPU, held to the repository's render gates.
+4. K1 against its plain version on the pair arrays of one real frame, with
+   the kernel's time, the plain version's time and the least time the card
+   could take for the same work;
+5. render reference: a small avatar rendered on the card and, through the
+   plain path, on the CPU, held to the repository's render gates;
+6. training path: the same avatar and shape through `Scene` and
+   `train.make_train_step` (the default config's losses, LPIPS included,
+   the converter's optimizer, the arena Adam, the densify statistics),
+   30 steps cycling the training cameras, with the launch counts set to 0
+   just before and read just after;
+7. K2 and K3 against their plain versions on the inputs of one full-width
+   training step (the pair arrays and the real cotangent for K2; the
+   hash-table backward and the pair-gradient reduction for K3), with their
+   times, plain times, bounds and, for K3, the time of `index_add_`;
+8. training reference: one small training step on the card and on the CPU
+   with the same state, camera and draws, loss terms and gradients held to
+   bench.py's gates.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
 
 import torch
 
 FRAMES = 20
+TRAIN_STEPS = 30
+TRAIN_ITERATION = 1000   # bench.py's loss weights and learning rate
+# the kernels' inputs and the small reference step are taken past every
+# delay gate (non-rigid 3000, pose correction 5000), where the hash-table
+# and pose gradients are not zero
+LATE_ITERATION = 6000
 SEED = 0
+DEVICE = 'cuda'
 SMALL_SHAPE = [
     "dataset.img_hw=[64,64]",
     "dataset.n_verts=512",
@@ -44,6 +65,28 @@ SMALL_SHAPE = [
 # agree; only the colour sums are taken in another order (a sequential sum
 # against a matrix product), which moves them by a few ulp of values <= 1
 K1_TOL = 1e-5
+# K2 against its plain version: the same included pairs, but the 256-pixel
+# sums, the colour prefixes and T are rounded in another order, which moves
+# a value by some f32 ulps of the magnitudes of the terms it sums, however
+# much they cancel: every value within 1e-4 of its own scale
+# (composite.composite_pairs_bwd_scale)
+K2_TOL = 1e-4
+# K3 against its plain version: the kernel adds in f32 in an order that
+# changes from run to run (shared-memory atomics), so each segment is held
+# to 1e-5 of the sum of its values' magnitudes; the plain version's float64
+# running sum adds 4 ulps of the largest running sum of magnitudes
+K3_TOL = 1e-5
+# K3 launches per training step, from the code: the pair-gradient
+# reduction (pairs.build_pairs), the hash-table gradient
+# (hashgrid._HashGather) and the four AIAP neighbour gathers
+# (losses.full_aiap_loss: xyz and covariance, canonical and observed)
+K3_PER_STEP = 6
+# the small training step on the card against the CPU: each loss term
+# within 1e-4 relative; each gradient leaf with cosine > 0.999 and a mean
+# error < 1e-3 of its largest value (bench.py's parity gate)
+LOSS_RTOL = 1e-4
+GRAD_COS = 0.999
+GRAD_REL = 1e-3
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -163,6 +206,23 @@ def k1_work(pair_data, tile_start, grid_x):
     return walked, evaluated, included
 
 
+# the columns of a pair row K1 and K2 read, and of a gradient row K2
+# writes: m2dx, m2dy, conic a, b, c, colour r, g, b, opacity
+LIVE_COLS = 9
+
+
+def pairs_bytes(pd, ts):
+    """The live columns of each pair row and the tile ranges, read once."""
+    return pd.shape[0] * LIVE_COLS * 4 + ts.numel() * 4
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations'), t_bytes, t_ops
+
+
 def k1_record(pa, grid_x, launches):
     from gsavatar_torch.ops.rasterizer import composite as K
     pd, ts = pa.pair_data, pa.tile_start
@@ -190,24 +250,22 @@ def k1_record(pa, grid_x, launches):
     # clamp, alpha test) where power <= 0; 10 more (1 - alpha, T, its test,
     # the weight, three colour multiply-adds) for every included pair
     ops = 12 * walked + 4 * evaluated + 10 * included
-    nbytes = pd.numel() * 4 + ts.numel() * 4 + num_tiles * 8 * 256 * 4
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
+    # plus one (8, 256) f32 tile of output written
+    nbytes = pairs_bytes(pd, ts) + num_tiles * 8 * 256 * 4
+    b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
     per_tile = torch.diff(ts)
     log(f"K1 pairs per tile: max {int(per_tile.max())}, mean "
         f"{float(per_tile.float().mean()):.1f}, {num_tiles} tiles")
     log(f"K1 work: {walked} (pair, pixel) walked, {evaluated} evaluated, "
         f"{included} included; {ops} f32 ops, {nbytes} bytes")
-    log(f"K1 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
-        f"operations {t_ops:.4f})")
+    log(f"K1 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+        f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
     return {
         'name': 'composite_fwd', 'route': 'cuda',
         'source': 'gsavatar_torch/csrc/composite_fwd.cu',
         'replaces': 'gsavatar/ops/rasterizer/pallas_composite.py:91',
         'launches': launches, 'max_abs_err': max_err, 'ms': ms,
-        'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
-        'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+        'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
         'library_ms': None,
     }
 
@@ -220,6 +278,359 @@ def render_gates(got, want, name):
     log(f"reference {name}: mean err {mean:.3e}, off > 1e-2 {frac:.3e}")
     if not (mean < 1e-4 and frac < 1e-3):
         fail(f"{name} misses the render gates against the CPU reference")
+
+
+def small_train_scene(device, ref=None):
+    """The SMALL_SHAPE training scene on `device`; with `ref` (a scene on
+    another device), its state, converter weights and draws' generator
+    copied from `ref` so that the two steps see the same inputs."""
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.scene import Scene
+    cfg = load_config(SMALL_SHAPE)
+    scene = Scene(cfg, seed=SEED, device=device)
+    state = scene.init_state()
+    if ref is not None:
+        ref_scene, ref_state = ref
+        scene.converter.load_state_dict(ref_scene.converter.state_dict())
+        to = lambda x: x.to(device)
+        state.gauss_params = ref_state.gauss_params.map(to)
+        state.gauss_aux = ref_state.gauss_aux.map(to)
+    return cfg, scene, state
+
+
+def grad_gates(got, want, name):
+    """bench.py's gradient gate per leaf: cosine and mean error relative to
+    the largest |value|."""
+    a, b = got.double().cpu().reshape(-1), want.double().cpu().reshape(-1)
+    scale = max(float(b.abs().max()), 1e-3)
+    rel = float((a - b).abs().mean()) / scale
+    na, nb = float(a.norm()), float(b.norm())
+    cos = float(a @ b) / (na * nb) if na > 0 and nb > 0 else (
+        1.0 if na == nb else 0.0)
+    return cos, rel
+
+
+def train_reference():
+    """One small training step on the card and on the CPU from the same
+    state, camera and draws: loss terms within LOSS_RTOL, every gradient
+    leaf within bench.py's gates."""
+    from gsavatar_torch.train import draw, loss_weights, make_grad_fn
+    cfg, cpu, cpu_state = small_train_scene('cpu')
+    _, gpu, gpu_state = small_train_scene(DEVICE, ref=(cpu, cpu_state))
+    cam_cpu = cpu.train_dataset[0]
+    cam_gpu = gpu.train_dataset[0].replace(image=cam_cpu.image.to(DEVICE),
+                                           mask=cam_cpu.mask.to(DEVICE))
+    draws = draw(cpu, cpu_state.generator)
+    w = loss_weights(cfg, LATE_ITERATION)
+    bucket = cpu.bucket_for(int(cpu_state.gauss_aux.alive.sum()))
+    out = {}
+    for name, scene, state, cam in (('cpu', cpu, cpu_state, cam_cpu),
+                                    ('gpu', gpu, gpu_state, cam_gpu)):
+        out[name] = make_grad_fn(scene)(
+            state, cam, LATE_ITERATION, w, draws.to(scene.device), 0,
+            bucket, scene.raster_config)
+    (m_c, _, g_c), (m_g, _, g_g) = out['cpu'], out['gpu']
+    worst = 0.0
+    for k, v in m_c.items():
+        if not k.startswith('loss/'):
+            continue
+        a, b = float(m_g[k]), float(v)
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        worst = max(worst, rel if abs(b) > 1e-9 else 0.0)
+        if abs(b) > 1e-9 and rel > LOSS_RTOL:
+            fail(f"small step: {k} {a} on the card, {b} on the CPU")
+    leaves = [(f'conv/{k}', g_g['conv'][k], v)
+              for k, v in g_c['conv'].items()]
+    leaves += [(f'gauss/{f}', getattr(g_g['gauss'], f),
+                getattr(g_c['gauss'], f))
+               for f in ('xyz', 'features_dc', 'features_rest', 'scaling',
+                         'rotation', 'opacity')]
+    leaves.append(('means2d', g_g['means2d'], g_c['means2d']))
+    min_cos, max_rel = 1.0, 0.0
+    for name, a, b in leaves:
+        if not float(b.abs().max()) > 0.0:
+            continue      # a leaf this step gives no gradient
+        cos, rel = grad_gates(a, b, name)
+        min_cos, max_rel = min(min_cos, cos), max(max_rel, rel)
+        if not (cos > GRAD_COS and rel < GRAD_REL):
+            fail(f"small step gradient {name}: cosine {cos}, mean rel {rel}")
+    log(f"train reference: {len(leaves)} gradient leaves, min cosine "
+        f"{min_cos:.7f} (gate > {GRAD_COS}), max mean rel {max_rel:.3e} "
+        f"(gate < {GRAD_REL}); loss terms max rel {worst:.3e} (gate < "
+        f"{LOSS_RTOL}); pairs {m_g['raster/n_pairs']} on the card, "
+        f"{m_c['raster/n_pairs']} on the CPU")
+
+
+def capture_kernel_inputs(scene, state, cam, weights, bucket):
+    """One more full-width forward and backward (no update), recording the
+    inputs K2 and K3 receive: the gradients, and the arguments of each
+    launch."""
+    import gsavatar_torch.ops.segsum as segsum_mod
+    from gsavatar_torch.ops.rasterizer import composite
+    from gsavatar_torch.train import draw, make_grad_fn
+    seen = {'k2': [], 'k3': []}
+    bwd = composite.composite_pairs_bwd
+    k3 = segsum_mod.segment_sum_sorted_blocked
+
+    def keep(args):
+        return tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    def rec_bwd(*args):
+        seen['k2'].append(keep(args))
+        return bwd(*args)
+
+    def rec_k3(*args):
+        seen['k3'].append(keep(args))
+        return k3(*args)
+
+    # K2's wrapper counts its launches on its module-level name, which is
+    # the recorder's while it stands in; these launches come after the
+    # training run's counts were read
+    rec_bwd.launches = 0
+    composite.composite_pairs_bwd = rec_bwd
+    segsum_mod.segment_sum_sorted_blocked = rec_k3
+    try:
+        _, _, grads = make_grad_fn(scene)(
+            state, cam, LATE_ITERATION, weights,
+            draw(scene, state.generator), 0, bucket, scene.raster_config)
+    finally:
+        composite.composite_pairs_bwd = bwd
+        segsum_mod.segment_sum_sorted_blocked = k3
+    torch.cuda.synchronize()
+    return grads, seen
+
+
+def train_main():
+    """Phase 6: TRAIN_STEPS full-width training steps."""
+    from gsavatar_torch.config import BENCH_OVERRIDES, load_config
+    from gsavatar_torch.ops import segsum_blocked
+    from gsavatar_torch.ops.rasterizer import composite
+    from gsavatar_torch.scene import Scene
+    from gsavatar_torch.train import loss_weights, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = load_config(BENCH_OVERRIDES)
+    scene = Scene(cfg, seed=SEED, device=DEVICE)
+    state = scene.init_state()
+    ds = scene.train_dataset
+    cams = [ds[i] for i in range(len(ds))]
+    torch.cuda.synchronize()
+    n_alive = int(state.gauss_aux.alive.sum())
+    bucket = scene.bucket_for(n_alive)
+    weights = loss_weights(cfg, TRAIN_ITERATION)
+    weights['_in_densify_window'] = 1.0
+    xyz_lr = scene.xyz_lr_fn(TRAIN_ITERATION)
+    log(f"train set-up: {n_alive} Gaussians (bucket {bucket}), "
+        f"{len(cams)} cameras with ground truth, "
+        f"{time.perf_counter() - t0:.1f} s")
+    step = make_train_step(scene)
+    before = {
+        'xyz': state.gauss_params.xyz.clone(),
+        'features_dc': state.gauss_params.features_dc.clone(),
+        'conv': {k: v.detach().clone()
+                 for k, v in state.conv_params.items()}}
+
+    counters = {'composite_fwd': composite.composite_pairs_fwd,
+                'composite_bwd': composite.composite_pairs_bwd,
+                'segsum': segsum_blocked.segment_sum_sorted_blocked}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, cams[i % len(cams)], TRAIN_ITERATION + i,
+                        weights, xyz_lr, active_sh_degree=0, bucket=bucket)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1000.0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    later = sorted(step_ms[1:])
+    log(f"train path: {TRAIN_STEPS} steps, median {later[len(later) // 2]:.3f}"
+        f" ms/step without the first (mean {sum(later) / len(later):.3f}, "
+        f"max {later[-1]:.3f}, first {step_ms[0]:.1f}), peak device memory "
+        f"{peak:.3f} GiB, pairs per step "
+        f"{min(m['raster/n_pairs'] for m in metrics):.0f}.."
+        f"{max(m['raster/n_pairs'] for m in metrics):.0f}, launches "
+        f"{launches}")
+    for label, m in (('first', metrics[0]), ('last', metrics[-1])):
+        log(f"train {label} step: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in sorted(m.items())))
+    for i, m in enumerate(metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"train step {i}: non-finite {bad}")
+        if m['overflow/pairs']:
+            fail(f"train step {i}: pair_overflow {m['overflow/pairs']}")
+    first5 = sum(m['loss/total_loss'] for m in metrics[:5]) / 5
+    last5 = sum(m['loss/total_loss'] for m in metrics[-5:]) / 5
+    log(f"train loss: mean of the first 5 steps {first5:.6f}, of the last "
+        f"5 {last5:.6f}")
+    if not last5 < first5:
+        fail("the training loss did not fall")
+    want = {'composite_fwd': TRAIN_STEPS, 'composite_bwd': TRAIN_STEPS,
+            'segsum': K3_PER_STEP * TRAIN_STEPS}
+    if launches != want:
+        fail(f"train launches {launches}, expected {want}")
+    # a non-finite gradient element of any step reaches the parameters or
+    # the Adam moments (dead slots included: 0 * NaN is NaN)
+    tensors = [getattr(t, f) for t in (state.gauss_params, state.gauss_adam.m,
+                                       state.gauss_adam.v)
+               for f in ('xyz', 'features_dc', 'features_rest', 'scaling',
+                         'rotation', 'opacity')]
+    tensors += list(state.conv_params.values()) \
+        + list(state.conv_opt.mu.values()) + list(state.conv_opt.nu.values()) \
+        + [state.gauss_aux.xyz_gradient_accum]
+    if not all(bool(t.isfinite().all()) for t in tensors):
+        fail("non-finite parameters or optimizer state after training")
+    moved = {
+        'xyz': float((state.gauss_params.xyz - before['xyz']).abs().max()),
+        'features_dc': float((state.gauss_params.features_dc
+                              - before['features_dc']).abs().max()),
+        'converter': max(float((v.detach() - before['conv'][k]).abs().max())
+                         for k, v in state.conv_params.items())}
+    log(f"train updates: largest change {moved}")
+    if not all(v > 0 for v in moved.values()):
+        fail(f"parameters did not change: {moved}")
+
+    grads, seen = capture_kernel_inputs(scene, state, cams[0], weights,
+                                        bucket)
+    leaves = list(grads['conv'].values()) + [
+        getattr(grads['gauss'], f) for f in ('xyz', 'features_dc',
+                                             'features_rest', 'scaling',
+                                             'rotation', 'opacity')] + [
+        grads['means2d']]
+    if not all(bool(g.isfinite().all()) for g in leaves):
+        fail("a gradient leaf of the full-width step is not finite")
+    log(f"train gradients: {len(leaves)} leaves, all finite")
+    return launches, seen
+
+
+def k2_record(args, launches):
+    from gsavatar_torch.ops.rasterizer import composite as K
+    pd, ts, ct, fwd, grid_x = args
+    got = K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x)
+    want = K.composite_pairs_bwd_plain(pd, ts, ct, fwd, grid_x)
+    scale = K.composite_pairs_bwd_scale(pd, ts, ct, fwd, grid_x)
+    torch.cuda.synchronize()
+    n_tiles = ts.shape[0] - 1
+    err = (got - want).abs()
+    max_err = float(err.max())
+    worst = float((err / scale.clamp_min(1e-30)).max())
+    n_off = int((err > K2_TOL * scale).sum())
+    log(f"K2 vs plain on {pd.shape[0]} pairs: max abs err {max_err:.3e}, "
+        f"worst err / own scale {worst:.3e}, {n_off} values off (tolerance "
+        f"{K2_TOL:g} of each value's scale); largest |grad| "
+        f"{float(want.abs().max()):.4g}, rows no pixel includes "
+        f"{int((scale[:, :9] == 0).all(1).sum())}")
+    if n_off:
+        r_bad, c_bad = divmod(int((err / scale.clamp_min(1e-30)).argmax()),
+                              pd.shape[1])
+        log(f"K2 worst row {r_bad} column {c_bad}: kernel "
+            f"{float(got[r_bad, c_bad])!r}, plain "
+            f"{float(want[r_bad, c_bad])!r}, scale "
+            f"{float(scale[r_bad, c_bad])!r}")
+        fail(f"K2 disagrees with its plain version: {n_off} values off")
+    ms = timed(lambda: K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x), 100)
+    plain_ms = timed(lambda: K.composite_pairs_bwd_plain(pd, ts, ct, fwd,
+                                                         grid_x), 2)
+    walked, evaluated, included = k1_work(pd, ts, grid_x)
+    # f32 operations: the forward's 12 per walked and 4 per evaluated
+    # (pair, pixel), and per included one about 54 (T, w, the colour
+    # prefixes, dL/dalpha, the nine terms) plus the 9 adds that sum them
+    # over the tile's pixels
+    ops = 12 * walked + 4 * evaluated + 63 * included
+    # bytes: the pair rows' live columns and the tile ranges read, the
+    # cotangent's rows 0-4 and the forward output's rows 0-2 and 4 read per
+    # tile, the gradient rows' live columns written
+    nbytes = pairs_bytes(pd, ts) + n_tiles * (5 + 4) * 256 * 4 \
+        + pd.shape[0] * LIVE_COLS * 4
+    b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
+    log(f"K2 work: {walked} (pair, pixel) walked, {evaluated} evaluated, "
+        f"{included} included; {ops} f32 ops, {nbytes} bytes")
+    log(f"K2 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+        f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+    return {
+        'name': 'composite_bwd', 'route': 'cuda',
+        'source': 'gsavatar_torch/csrc/composite_bwd.cu',
+        'replaces': 'gsavatar/ops/rasterizer/pallas_composite.py:199',
+        'launches': launches, 'max_abs_err': max_err, 'ms': ms,
+        'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+        'library_ms': None,
+    }
+
+
+def k3_check(values, ids, num_segments, label):
+    """K3 against its plain version on one real input; returns (max abs
+    err, kernel ms, plain ms, index_add_ ms, bound ms, bound_by)."""
+    from gsavatar_torch.ops import segsum_blocked as S
+    got = S.segment_sum_sorted_blocked(values, ids, num_segments)
+    want = S.segment_sum_sorted_blocked_plain(values, ids, num_segments)
+    mag = S.segment_sum_sorted_blocked_plain(values.abs(), ids, num_segments)
+    floor = 4 * torch.finfo(torch.float64).eps * float(
+        values.double().abs().sum(0).max())
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    n_off = int((err > K3_TOL * mag + floor).sum())
+    max_err = float(err.max())
+    log(f"K3 vs plain, {label}: M {values.shape[0]}, C {values.shape[1]}, "
+        f"S {num_segments}: max abs err {max_err:.3e}, worst err / |sum| "
+        f"{float((err / mag.clamp_min(1e-30)).max()):.3e}, {n_off} values "
+        f"off (tolerance {K3_TOL:g} of the segment's |sum| + {floor:.3g})")
+    if n_off:
+        s_bad, c_bad = divmod(int((err / mag.clamp_min(1e-30)).argmax()),
+                              values.shape[1])
+        rows = values[ids == s_bad, c_bad]
+        log(f"K3 worst segment {s_bad} column {c_bad}: {rows.numel()} rows, "
+            f"kernel {float(got[s_bad, c_bad])!r}, plain "
+            f"{float(want[s_bad, c_bad])!r}, float64 sum "
+            f"{float(rows.double().sum())!r}, |sum| "
+            f"{float(mag[s_bad, c_bad])!r}, rows {rows.tolist()[:64]}")
+        fail(f"K3 disagrees with its plain version on {label}")
+    ms = timed(lambda: S.segment_sum_sorted_blocked(values, ids,
+                                                    num_segments), 50)
+    plain_ms = timed(lambda: S.segment_sum_sorted_blocked_plain(
+        values, ids, num_segments), 3)
+    lib_ms = timed(lambda: torch.zeros(
+        (num_segments, values.shape[1]), device=values.device).index_add_(
+            0, ids, values), 50)
+    M, C = values.shape
+    b_ms, b_by, t_bytes, t_ops = bound(M * (4 + 4 * C)
+                                       + num_segments * 4 * C, M * C)
+    log(f"K3 {label}: {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes {t_bytes:.4f}, "
+        f"operations {t_ops:.5f})")
+    return max_err, ms, plain_ms, lib_ms, b_ms, b_by
+
+
+def train_phases():
+    """Phases 6-8; returns the kernel records of K2 and K3."""
+    launches, seen = train_main()
+    if len(seen['k2']) != 1 or len(seen['k3']) != K3_PER_STEP:
+        fail(f"captured {len(seen['k2'])} K2 and {len(seen['k3'])} K3 "
+             f"launches in one step")
+    by_cols = {}
+    for values, ids, n in seen['k3']:
+        by_cols.setdefault(values.shape[1], (values, ids, n))
+    hash_in, pair_in = by_cols[2], by_cols[9]
+    with torch.no_grad():
+        records = [k2_record(seen['k2'][0], launches['composite_bwd'])]
+        k3_check(*pair_in, 'pair gradients')
+        max_err, ms, plain_ms, lib_ms, b_ms, b_by = k3_check(*hash_in,
+                                                              'hash table')
+    records.append({
+        'name': 'segsum', 'route': 'cuda',
+        'source': 'gsavatar_torch/csrc/segsum.cu',
+        'replaces': 'gsavatar/ops/segsum_pallas.py:50',
+        'launches': launches['segsum'], 'max_abs_err': max_err, 'ms': ms,
+        'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+        'library_ms': lib_ms,
+    })
+    train_reference()
+    return records
 
 
 def main():
@@ -250,7 +661,7 @@ def main():
 
     # 3. main path at full width
     t0 = time.perf_counter()
-    scene, cams = synthetic_scene(BENCH_OVERRIDES, SEED, 'cuda')
+    scene, cams = synthetic_scene(BENCH_OVERRIDES, SEED, DEVICE)
     log(f"set-up: {int(scene.gauss_aux.alive.sum())} Gaussians, "
         f"{len(cams)} cameras, {time.perf_counter() - t0:.1f} s")
     counters = {'composite_fwd': composite.composite_pairs_fwd}
@@ -271,7 +682,9 @@ def main():
     if any(res['pair_overflow']):
         fail(f"pair_overflow {res['pair_overflow']}")
     for i, (img, alpha) in enumerate(zip(res['images'], res['alphas'])):
-        if img.shape != (540, 540, 3) or not bool(img.isfinite().all()):
+        rc = scene.raster_config
+        if img.shape != (rc.height, rc.width, 3) \
+                or not bool(img.isfinite().all()):
             fail(f"frame {i}: image {tuple(img.shape)} not finite")
         if not (0.0 <= float(img.min()) and float(img.max()) <= 1.0):
             fail(f"frame {i}: image outside [0, 1]")
@@ -289,7 +702,7 @@ def main():
                          launches['composite_fwd'])]
 
     # 5. a small avatar on the card against the CPU's plain path
-    small, small_cams = synthetic_scene(SMALL_SHAPE, SEED, 'cuda')
+    small, small_cams = synthetic_scene(SMALL_SHAPE, SEED, DEVICE)
     ref, _ = synthetic_scene(SMALL_SHAPE, SEED, 'cpu')
     for cam in small_cams[:2]:
         a = small.render_frame(cam.to(small.device))
@@ -303,6 +716,9 @@ def main():
             fail("small avatar: the pair counts disagree")
         render_gates(a.render.clamp(0, 1), b.render.clamp(0, 1), 'image')
         render_gates(a.opacity_render, b.opacity_render, 'alpha')
+
+    # 6-8. the training path, its kernels, and its reference
+    records += train_phases()
 
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

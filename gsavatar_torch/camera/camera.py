@@ -3,12 +3,14 @@
 Counterpart of `gsavatar/camera/camera.py`. A plain dataclass: the matrices
 and the avatar pose are tensors, the per-frame latent/pose indices and the
 "frame is in frame_dict" flag are Python numbers (they pick rows and gate
-blends; keeping them on the host costs no device sync). Cameras of the
-serving path carry no image or mask: the ground truth is a training input."""
+blends; keeping them on the host costs no device sync). `image` (H, W, 3)
+and `mask` (H, W) are the ground truth of a training camera; cameras of
+the serving path carry none."""
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -24,6 +26,8 @@ class Camera:
     rots: torch.Tensor                  # (1, 24, 9) rotation matrices
     Jtrs: torch.Tensor                  # (1, 24, 3) normalized joints
     bone_transforms: torch.Tensor       # (24, 4, 4) canonical -> posed
+    image: Optional[torch.Tensor] = None  # (H, W, 3) in [0, 1]
+    mask: Optional[torch.Tensor] = None   # (H, W) {0, 1}
     latent_idx: int = 0
     pose_idx: int = 0
     in_frame_dict: float = 1.0

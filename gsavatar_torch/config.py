@@ -1,6 +1,7 @@
-"""The render path's configuration as a plain Python dict.
+"""The port's configuration as a plain Python dict.
 
-Counterpart of `gsavatar/config/config.py` for what the render path reads:
+Counterpart of `gsavatar/config/config.py` for what the render path and
+the training step read:
 the defaults of `configs/config.yaml` composed with its default groups
 (`pose_correction/direct`, `texture/shallow_mlp`, `rigid/skinning_field`,
 `non_rigid/hashgrid`, `option/iter15k`) and `dataset/synthetic.yaml`, with
@@ -21,6 +22,7 @@ DEFAULTS = {
             'sh_degree': 3,
             'feature_dim': 32,
             'capacity': 262144,
+            'delay': 1000,
         },
         'pose_correction': {'name': 'direct', 'delay': 5000},
         'deformer': {
@@ -77,6 +79,7 @@ DEFAULTS = {
             'non_rigid_dim': 16,
             'latent_dim': 16,
             'cano_view_dir': True,
+            'view_noise': 45,
             'mlp': {
                 'n_neurons': 64,
                 'n_hidden_layers': 2,
@@ -93,6 +96,7 @@ DEFAULTS = {
         'white_background': False,
         'n_verts': 2048,
         'n_points': 8192,
+        'n_target_gaussians': 4096,
         'train_views': ['0', '1'],
         'val_views': ['2'],
         'train_frames': [0, 8, 1],
@@ -103,16 +107,59 @@ DEFAULTS = {
         'img_hw': [256, 256],
         'seed': 0,
     },
-    'opt': {'iterations': 15000},
+    'opt': {
+        'iterations': 15000,
+        'grad_clip': 0.1,
+        'position_lr_init': 0.00016,
+        'position_lr_final': 1.6e-06,
+        'position_lr_delay_mult': 0.01,
+        'position_lr_max_steps': 30000,
+        'feature_lr': 0.001,
+        'opacity_lr': 0.05,
+        'scaling_lr': 0.005,
+        'rotation_lr': 0.001,
+        'pose_correction_lr': 0.0001,
+        'rigid_lr': 0.0001,
+        'non_rigid_lr': 0.001,
+        'nr_latent_lr': 0.001,
+        'texture_lr': 0.001,
+        'tex_latent_lr': 0.001,
+        'latent_weight_decay': 0.05,
+        'lr_ratio': 0.1,
+        'lambda_l1': 1.0,
+        'lambda_dssim': 0.0,
+        'lambda_perceptual': 0.01,
+        'mask_loss_type': 'l1',
+        'lambda_mask': 0.1,
+        'lambda_opacity': 0.0,
+        'lambda_skinning': [10, 1000, 0.1],
+        'lambda_pose': 0.0,
+        'lambda_aiap_xyz': 1.0,
+        'lambda_aiap_cov': 100.0,
+        'lambda_nr_xyz': 0.0,
+        'lambda_nr_scale': 0.0,
+        'lambda_nr_rot': 0.0,
+        'densification_interval': 100,
+        'opacity_reset_interval': 3000,
+        'densify_from_iter': 500,
+        'densify_until_iter': 10000,
+        'n_reg_pts': 1024,
+        'skinning_pool_size': 65536,
+    },
+    'pipeline': {'pose_noise': 0.1},
     'rasterizer': {'max_pairs': 2097152, 'max_rect': 8},
 }
 
 # the bench shape of the JAX package (bench.py:248-258): the synthetic
-# avatar at 540x540 with 50,000 Gaussians in an arena of 131072
+# avatar at 540x540 with 50,000 Gaussians in an arena of 131072, a hidden
+# target of 50,000 Gaussians for the ground truth and a skinning pool of
+# 16384 points
 BENCH_OVERRIDES = (
     "dataset.img_hw=[540,540]",
     "dataset.n_verts=4096",
     "dataset.n_points=50000",
+    "dataset.n_target_gaussians=50000",
+    "opt.skinning_pool_size=16384",
     "dataset.train_frames=[0,4,1]",
     "model.gaussian.capacity=131072",
     "rasterizer.max_pairs=2097152",

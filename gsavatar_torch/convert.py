@@ -10,7 +10,13 @@ the JAX side, so this module imports no JAX) and returns the port's:
   The hash `table` (L, 2^16, 2), the latent embeddings and the
   pose-correction tables map by path unchanged.
 * `arena(gauss_params, gauss_aux)`: GaussianParams / GaussianAux from the
-  JAX package's, their leaves numpy arrays."""
+  JAX package's, their leaves numpy arrays: the parameters, the alive mask,
+  the densify statistics and the cached AIAP neighbours.
+* `arena_adam(gauss_adam)`: the arena Adam's moments and its shared step.
+
+The converter optimizer's state is not carried: a carried state starts
+fresh (count 0, zero moments, `scene.ConverterOptimizer.init`). Carrying a
+mid-run optax state waits for checkpoints."""
 from __future__ import annotations
 
 import re
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from gsavatar_torch.core.gaussians import GaussianAux, GaussianParams
+from gsavatar_torch.core.optim import ArenaAdamState
 
 _LAYERS = re.compile(r'^layers_(\d+)_(\d+)$')
 
@@ -52,13 +59,26 @@ def converter_state(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def arena(gauss_params, gauss_aux):
-    """JAX GaussianParams / GaussianAux (numpy leaves) -> the port's."""
-    t = lambda x: torch.from_numpy(np.array(x, np.float32))
-    params = GaussianParams(**{
-        k: t(getattr(gauss_params, k))
+def _params(tree) -> GaussianParams:
+    return GaussianParams(**{
+        k: torch.from_numpy(np.array(getattr(tree, k), np.float32))
         for k in ('xyz', 'features_dc', 'features_rest', 'scaling',
                   'rotation', 'opacity')})
-    aux = GaussianAux(alive=torch.from_numpy(
-        np.array(gauss_aux.alive, bool)))
-    return params, aux
+
+
+def arena(gauss_params, gauss_aux):
+    """JAX GaussianParams / GaussianAux (numpy leaves) -> the port's."""
+    f32 = lambda x: torch.from_numpy(np.array(x, np.float32))
+    aux = GaussianAux(
+        alive=torch.from_numpy(np.array(gauss_aux.alive, bool)),
+        max_radii2d=f32(gauss_aux.max_radii2d),
+        xyz_gradient_accum=f32(gauss_aux.xyz_gradient_accum),
+        denom=f32(gauss_aux.denom),
+        nn_ix=torch.from_numpy(np.array(gauss_aux.nn_ix, np.int32)))
+    return _params(gauss_params), aux
+
+
+def arena_adam(gauss_adam) -> ArenaAdamState:
+    """JAX ArenaAdamState (numpy leaves) -> the port's."""
+    return ArenaAdamState(m=_params(gauss_adam.m), v=_params(gauss_adam.v),
+                          step=int(np.asarray(gauss_adam.step)))

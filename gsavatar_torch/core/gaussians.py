@@ -38,11 +38,26 @@ class GaussianParams:
                                  for f in dataclasses.fields(self)})
 
 
+K_NEIGHBORS = 5  # AIAP neighbour count
+
+
 @dataclasses.dataclass
 class GaussianAux:
-    """Arena state that is not learned. The densification statistics and
-    the cached AIAP neighbours join it with the training slice."""
-    alive: torch.Tensor  # (N,) bool
+    """Arena state that is not learned: the alive mask, the densification
+    statistics and the cached AIAP neighbours (recomputed on the densify
+    cadence, not every step)."""
+    alive: torch.Tensor               # (N,) bool
+    max_radii2d: torch.Tensor         # (N,) f32
+    xyz_gradient_accum: torch.Tensor  # (N,) f32
+    denom: torch.Tensor               # (N,) f32
+    nn_ix: torch.Tensor               # (N, K_NEIGHBORS) int32
+
+    def replace(self, **kw) -> "GaussianAux":
+        return dataclasses.replace(self, **kw)
+
+    def map(self, fn) -> "GaussianAux":
+        return GaussianAux(**{f.name: fn(getattr(self, f.name))
+                              for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass
@@ -103,12 +118,22 @@ def empty_params(capacity: int, use_sh: bool, sh_degree: int = 3,
         rotation=rotation, opacity=z(capacity, 1))
 
 
+def empty_aux(capacity: int, device='cpu') -> GaussianAux:
+    z = torch.zeros(capacity, device=device)
+    return GaussianAux(
+        alive=torch.zeros(capacity, dtype=torch.bool, device=device),
+        max_radii2d=z, xyz_gradient_accum=z.clone(), denom=z.clone(),
+        nn_ix=torch.zeros((capacity, K_NEIGHBORS), dtype=torch.int32,
+                          device=device))
+
+
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
                     use_sh: bool, sh_degree: int = 3, feature_dim: int = 32,
                     device='cpu'):
     """Seed the arena from a point cloud: RGB -> SH DC (SH mode only),
     log(sqrt(mean 3-NN squared distance)) scales, identity rotations,
-    opacity logit of 0.1."""
+    opacity logit of 0.1, and each point's K_NEIGHBORS nearest neighbours
+    for the AIAP losses."""
     n = points.shape[0]
     if n > capacity:
         raise ValueError(f"{n} points do not fit an arena of {capacity}")
@@ -122,9 +147,10 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
     if use_sh:
         params.features_dc[:n, 0] = sh.rgb_to_sh(torch.as_tensor(
             np.asarray(colors, np.float32), device=device))
-    alive = torch.zeros(capacity, dtype=torch.bool, device=device)
-    alive[:n] = True
-    return params, GaussianAux(alive=alive)
+    aux = empty_aux(capacity, device)
+    aux.alive[:n] = True
+    aux.nn_ix[:n] = knn.knn_self(pts, K_NEIGHBORS)
+    return params, aux
 
 
 def make_view(params: GaussianParams, aux: GaussianAux, *, active_sh_degree=0,

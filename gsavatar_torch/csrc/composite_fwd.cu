@@ -18,6 +18,7 @@
 // batch once every pixel has stopped (a block-wide __syncthreads_count
 // vote). A plain product T *= (1 - alpha) replaces the TPU kernel's
 // log-space cumsum and MXU colour product; the two agree to rounding.
+// Power, alpha and T are rounded by composite_common.cuh, which K2 shares.
 //
 // What bounds it on this card: the bytes are small (each pair row is read
 // once per tile, 48 B, plus 8 KB of output per tile), so the bound is the
@@ -29,13 +30,13 @@
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;   // threads per CTA
-constexpr int kCols = 12;             // floats per pair row
+using namespace gs;
+
 constexpr int kBatch = kPix;          // pair rows staged per round
-constexpr int kOutRows = 8;
 
 __global__ void __launch_bounds__(kPix)
 composite_fwd_kernel(const float* __restrict__ pair_data,
@@ -70,27 +71,15 @@ composite_fwd_kernel(const float* __restrict__ pair_data,
     __syncthreads();
     const int n = min(kBatch, end - base);
     for (int j = 0; j < n && !done; ++j) {
-      const float4 g = s_geo[j];
       const float4 c = s_col[j];
-      // power, alpha and T round every product and sum on its own
-      // (__fmul_rn and friends are never fused into an FMA), in the order
-      // of the plain version's tensor expression, so that the two agree
-      // bit for bit on T and on which pairs pass the 1e-4 cut-off.
-      const float dx = g.x - px;
-      const float dy = g.y - py;
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(g.z, dx), dx),
-                                   __fmul_rn(__fmul_rn(c.x, dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(g.w, dx), dy));
-      if (power > 0.0f) continue;
-      const float alpha = fminf(0.99f, __fmul_rn(s_opac[j], expf(power)));
-      if (alpha < 1.0f / 255.0f) continue;
-      const float test_T = __fmul_rn(T, __fsub_rn(1.0f, alpha));
-      if (test_T < 1e-4f) {
+      Splat s;
+      if (!splat_at(s_geo[j], c.x, s_opac[j], px, py, s)) continue;
+      const float test_T = transmit(T, s.alpha);
+      if (test_T < kTStop) {
         done = 1;
         break;
       }
-      const float w = alpha * T;
+      const float w = s.alpha * T;
       acc_r += c.y * w;
       acc_g += c.z * w;
       acc_b += c.w * w;

@@ -1,32 +1,40 @@
-"""Synthetic avatar dataset: the serving part.
+"""Synthetic avatar dataset.
 
 Counterpart of `gsavatar/data/synthetic.py`: the deterministic synthetic
 humanoid, posed over F frames with smooth random joint wiggles, seen by
 cameras on a circle. The camera records and metadata follow the JAX
-dataset's recipes (same seeds, same normalization). The hidden target
-Gaussians and the ground-truth render are training inputs and are not part
-of this module, so its cameras carry no image."""
+dataset's recipes (same seeds, same normalization), and so does the hidden
+target: Gaussians on the body surface, skinned to it, whose render is the
+ground truth. The port renders the target with its own rasterizer (K1 on
+the card) where the JAX package uses its dense XLA route, so the two
+ground truths agree to the render gates, not bit for bit. Cameras carry an
+image and a mask only when the dataset is given `gt_device`, the device to
+render them on (training); the serving path's cameras carry none."""
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from gsavatar_torch.camera.camera import Camera, make_camera
+from gsavatar_torch.ops.rasterizer import RasterizeConfig, rasterize
 from gsavatar_torch.ops.sampling import sample_surface
 from gsavatar_torch.smpl import lbs as smpl_lbs
 from gsavatar_torch.smpl.body_model import synthetic_assets
+from gsavatar_torch.utils.transforms import covariance_from_scaling_rotation
 from . import base
 
 FOV = 0.8
 
 
 class SyntheticDataset:
-    def __init__(self, cfg: dict, split: str = 'train'):
+    def __init__(self, cfg: dict, split: str = 'train', gt_device=None):
         self.cfg = cfg
         self.split = split
+        self.gt_device = gt_device
+        self._cache: Dict[int, Camera] = {}
         seed = cfg.get('seed', 0)
         self.assets = synthetic_assets(n_verts=cfg.get('n_verts', 2048),
                                        seed=seed)
@@ -76,6 +84,7 @@ class SyntheticDataset:
         })
         if cfg.get('train_smpl', False) and split == 'train':
             self.metadata.update(self._pose_ground_truth(frames))
+        self._target = self._build_target(cfg)
 
     def _make_view(self, v: int, n_around: int = 8):
         """Camera `v` of `n_around` on a circle of radius 2.5, looking at
@@ -124,10 +133,75 @@ class SyntheticDataset:
             ret['trans'].append(np.zeros(3, np.float32))
         return ret
 
+    def _build_target(self, cfg: dict) -> Dict[str, np.ndarray]:
+        """The hidden ground-truth Gaussians in canonical space, with their
+        skinning weights, procedural colours and jittered scales."""
+        n = cfg.get('n_target_gaussians', 4096)
+        md = self.metadata
+        pts, face_idx, bary = sample_surface(md['smpl_verts'], md['faces'], n,
+                                             seed=cfg.get('seed', 0) + 7)
+        weights = (md['skinning_weights'][md['faces'][face_idx]]
+                   * bary[..., None]).sum(axis=1)
+        p = (pts - pts.min(0)) / (np.ptp(pts, 0) + 1e-6)
+        colors = np.stack([
+            0.5 + 0.5 * np.sin(3.0 * p[:, 0] + 6.0 * p[:, 1]),
+            p[:, 1],
+            0.5 + 0.5 * np.cos(5.0 * p[:, 2] + 2.0 * p[:, 1]),
+        ], axis=1).astype(np.float32)
+        rng = np.random.default_rng(cfg.get('seed', 0) + 13)
+        scales = np.full((n, 3), 0.012, np.float32) \
+            * (0.7 + 0.6 * rng.random((n, 3), dtype=np.float32))
+        return {'xyz': pts.astype(np.float32), 'colors': colors,
+                'opacity': np.full((n, 1), 0.9, np.float32),
+                'scales': scales.astype(np.float32),
+                'weights': weights.astype(np.float32)}
+
+    @torch.no_grad()
+    def render_gt(self, camera: Camera, device):
+        """The hidden target skinned by the camera's bone transforms and
+        rendered on `device` over a black background: (image clipped to
+        [0, 1], mask = alpha > 0.5)."""
+        t = {k: torch.as_tensor(v, device=device)
+             for k, v in self._target.items()}
+        cam = camera.to(device)
+        T_fwd = (t['weights'] @ cam.bone_transforms.reshape(-1, 16)).reshape(
+            -1, 4, 4)
+        xyz = (T_fwd[:, :3, :3] @ t['xyz'][..., None])[..., 0] \
+            + T_fwd[:, :3, 3]
+        q = torch.zeros((xyz.shape[0], 4), device=device)
+        q[:, 0] = 1.0
+        cov = covariance_from_scaling_rotation(t['scales'], 1.0, q)
+        res = rasterize(
+            xyz, t['colors'], t['opacity'], cov,
+            viewmatrix=cam.world_view_transform,
+            full_projmatrix=cam.full_proj_transform, tanfovx=cam.tanfovx,
+            tanfovy=cam.tanfovy, background=torch.zeros(3, device=device),
+            # a pair cap no render of the target reaches: max_rect^2 tiles
+            # for each of its Gaussians
+            config=RasterizeConfig(
+                width=self.w, height=self.h,
+                max_pairs=xyz.shape[0] * RasterizeConfig.max_rect ** 2))
+        if res.rect_dropped:
+            raise RuntimeError(f"the ground truth of {camera.image_name} "
+                               f"drops {res.rect_dropped} tiles")
+        return (torch.clamp(res.image, 0.0, 1.0),
+                (res.alpha > 0.5).to(torch.float32))
+
     def __len__(self):
         return len(self.data)
 
     def __getitem__(self, idx: int) -> Camera:
+        """The camera of record `idx`; with `gt_device`, on that device and
+        carrying its ground truth (rendered once, then cached)."""
+        if self.gt_device is None:
+            return self._camera(idx)
+        if idx not in self._cache:
+            cam = self._camera(idx).to(self.gt_device)
+            image, mask = self.render_gt(cam, self.gt_device)
+            self._cache[idx] = cam.replace(image=image, mask=mask)
+        return self._cache[idx]
+
+    def _camera(self, idx: int) -> Camera:
         rec = self.data[idx]
         v, f = rec['view'], rec['frame']
         smpl = self._frame_smpl(f)

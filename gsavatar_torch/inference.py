@@ -78,8 +78,7 @@ class InferenceScene:
         self.converter.to(self.device).eval()
         self.gauss_params = state.gauss_params.map(
             lambda x: x.to(self.device))
-        self.gauss_aux = G.GaussianAux(alive=state.gauss_aux.alive.to(
-            self.device))
+        self.gauss_aux = state.gauss_aux.map(lambda x: x.to(self.device))
         # render only the alive prefix when the alive slots form one
         alive = self.gauss_aux.alive.cpu()
         n_alive = int(alive.sum())

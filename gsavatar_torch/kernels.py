@@ -2,7 +2,8 @@
 
 Each `gsavatar_torch/csrc/<name>.cu` has a plain C interface. It is compiled
 at first use with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`
-into `build/<name>-<hash of the source>.so` at the repository root and
+into `build/<name>-<hash of the source and the csrc headers>.so` at the
+repository root and
 loaded with ctypes. Nothing is compiled when this module is imported, and
 only the kernels' own launch paths call `load`."""
 from __future__ import annotations
@@ -34,8 +35,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f'{name}.cu').read_bytes()).hexdigest()
-    return BUILD / f'{name}-{digest[:12]}.so'
+    """The library of csrc/<name>.cu, named by a hash of that source and of
+    every header under csrc/, so that editing a shared header rebuilds
+    every kernel that may include it."""
+    h = hashlib.sha1((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD / f'{name}-{h.hexdigest()[:12]}.so'
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid encoding, forward.
+"""Multiresolution hash-grid encoding.
 
 Counterpart of `gsavatar/models/hashgrid.py`: L levels x F features, a
 2^log2_hashmap_size table per level, geometric resolutions from base to
@@ -7,7 +7,11 @@ indexing where a level's grid fits its table and the spatial hash
 x ^ (y * 2654435761) ^ (z * 805459861) mod T where it does not.
 
 As in the JAX package, the forward reads a bf16-rounded copy of the table
-and returns f32 features (the parameters stay f32). The hash is uint32
+and returns f32 features (the parameters stay f32), and the table's
+gradient is summed in f32 by `segsum.segment_sum_leveled` (one sort per
+level and one K3 launch for all levels, `_HashGather`), not by autograd's
+scatter-add. Gradients reach the positions through the trilinear weights,
+outside the gather. The hash is uint32
 arithmetic; torch has no general uint32 multiply, so it runs in int64 with
 each product reduced mod 2^32 (`_mul_u32`), and a negative corner wraps as
 the uint32 cast does."""
@@ -19,6 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gsavatar_torch.ops.segsum import segment_sum_leveled
+
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
 
@@ -29,6 +35,27 @@ def _mul_u32(a, p: int):
     lo = a * (p & 0xFFFF)
     hi = ((a * (p >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _U32
+
+
+class _HashGather(torch.autograd.Function):
+    """table (L, T, F) f32, idx (L, M) int32 per-level ids in [0, T) ->
+    (L, M, F) f32 read from the bf16-rounded table; backward the f32
+    segment sum of the cotangent rows onto the table."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        table16 = table.to(torch.bfloat16)
+        return torch.stack([table16[l][idx[l]]
+                            for l in range(table.shape[0])]).float()
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, = ctx.saved_tensors
+        L, T, F = ctx.table_shape
+        d = segment_sum_leveled(ct, idx, T)
+        return d.reshape(L, T, F), None
 
 
 class HashGrid(nn.Module):
@@ -62,11 +89,11 @@ class HashGrid(nn.Module):
     def forward(self, x_sym):
         """x_sym (N, 3) in [-1, 1] -> (N, L * F) f32."""
         T = self.table_size
+        n = x_sym.shape[0]
         x = (x_sym + 1.0) * 0.5
-        table16 = self.table.to(torch.bfloat16)
         off = self.corners                                  # (8, 3) int64
-        feats = []
-        for l, res in enumerate(self.resolutions):
+        idx_lvl, w_lvl = [], []
+        for res in self.resolutions:
             pos = x * res
             p0 = torch.floor(pos)
             frac = pos - p0
@@ -81,7 +108,9 @@ class HashGrid(nn.Module):
                        ^ _mul_u32(cu[..., 1], _PRIMES[1])
                        ^ _mul_u32(cu[..., 2], _PRIMES[2])) % T
             w = torch.where(off == 1, frac[:, None, :], 1.0 - frac[:, None, :])
-            w = w[..., 0] * w[..., 1] * w[..., 2]          # (N, 8)
-            g = table16[l][idx].float()                     # (N, 8, F)
-            feats.append((g * w[..., None]).sum(dim=1))
-        return torch.cat(feats, dim=1)
+            idx_lvl.append(idx.to(torch.int32).reshape(-1))   # (N * 8,)
+            w_lvl.append(w[..., 0] * w[..., 1] * w[..., 2])   # (N, 8)
+        g = _HashGather.apply(self.table, torch.stack(idx_lvl))  # (L, N*8, F)
+        g = g.reshape(len(self.resolutions), n, 8, -1)
+        return torch.cat([(g[l] * w[..., None]).sum(dim=1)
+                          for l, w in enumerate(w_lvl)], dim=1)

@@ -5,8 +5,9 @@ distillation), `hierarchical_softmax` and `_apply_fwd_transform`: an MLP
 R^3 -> 25 logits, a hierarchical softmax over the SMPL tree, per-point
 T_fwd = sum_j w_j B_j, which moves xyz, premultiplies the rotation (kept as
 `rotation_precomp`) and is kept, detached, for the canonical view
-directions. The identity, nearest-SMPL and distilled variants come with a
-later slice."""
+directions. `skinning_loss` is the training-time distillation of the field
+toward the SMPL weights. The identity, nearest-SMPL and distilled variants
+come with a later slice."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,18 +32,19 @@ def hierarchical_softmax(x):
     same products of sigmoids and softmaxes along each chain."""
     sig = torch.sigmoid(x)
 
-    def smax(cols):
-        return torch.softmax(x[:, cols], dim=-1)
+    def smax(first):
+        # three adjacent logits, a slice: its backward is no scatter
+        return torch.softmax(x[:, first:first + 3], dim=-1)
 
     p = {}
-    base123 = sig[:, 0:1] * smax([1, 2, 3])
+    base123 = sig[:, 0:1] * smax(1)
     p[0] = 1.0 - sig[:, 0]
     p[1], p[2], p[3] = base123[:, 0], base123[:, 1], base123[:, 2]
     for child, parent in _SPLITS_LOWER:
         p[child] = p[parent] * sig[:, child]
         p[parent] = p[parent] * (1 - sig[:, child])
     up = p[9] * sig[:, 24]
-    s121314 = smax([12, 13, 14])
+    s121314 = smax(12)
     p[12], p[13], p[14] = (up * s121314[:, 0], up * s121314[:, 1],
                            up * s121314[:, 2])
     p[9] = p[9] * (1 - sig[:, 24])
@@ -89,6 +91,12 @@ class SkinningField(nn.Module):
         B = camera.bone_transforms.reshape(-1, 16)
         T_fwd = (pts_W @ B).reshape(-1, 4, 4)
         return _apply_fwd_transform(gaussians, T_fwd)
+
+    def skinning_loss(self, pts_norm, gt_weights):
+        """Squared error between the field and the SMPL weights at surface
+        samples: summed over joints, averaged over points."""
+        pred = self.query_weights(pts_norm)
+        return ((pred - gt_weights) ** 2).sum(-1).mean()
 
 
 def get_rigid(cfg: dict, metadata: dict, generator=None):

@@ -18,13 +18,17 @@ from gsavatar_torch.utils import transforms as T
 from .mlp import VanillaCondMLP
 
 
-def _view_dirs(gaussians: Gaussians, camera, cano_view_dir: bool):
+def _view_dirs(gaussians: Gaussians, camera, cano_view_dir: bool,
+               view_noise_rot=None):
     """Per-Gaussian unit view directions, rotated back into the canonical
-    frame by R_fwd^T when asked to and when a rigid transform exists."""
+    frame by R_fwd^T when asked to and when a rigid transform exists, then
+    by the training-time view-noise rotation `view_noise_rot` (3, 3)."""
     dir_pp = gaussians.get_xyz - camera.camera_center[None, :]
     if cano_view_dir and gaussians.fwd_transform is not None:
         R_bwd = gaussians.fwd_transform[:, :3, :3].transpose(1, 2)
         dir_pp = T.matvec3(R_bwd, dir_pp)
+        if view_noise_rot is not None:
+            dir_pp = (dir_pp[..., :, None] * view_noise_rot[None]).sum(-2)
     return dir_pp / (torch.linalg.vector_norm(dir_pp, dim=1, keepdim=True)
                      + 1e-12)
 
@@ -57,12 +61,14 @@ class ColorMLP(nn.Module):
             cond_in=tuple(cfg.get('cond_in', ())),
             multires=cfg.get('multires', 0), generator=generator)
 
-    def forward(self, gaussians: Gaussians, camera, latent_idx: int):
+    def forward(self, gaussians: Gaussians, camera, latent_idx: int,
+                view_noise_rot=None):
         feats = gaussians.get_features[..., 0]            # (N, feature_dim)
         n = feats.shape[0]
         parts = [feats]
         if self.sh_degree > 0:
-            dirs = _view_dirs(gaussians, camera, self.cano_view_dir)
+            dirs = _view_dirs(gaussians, camera, self.cano_view_dir,
+                              view_noise_rot)
             parts.append(sh_ops.eval_sh_bases(self.sh_degree, dirs)[:, 1:])
         if self.non_rigid_dim > 0:
             parts.append(gaussians.non_rigid_feature)

@@ -1,8 +1,10 @@
-"""Brute-force nearest-neighbour distances, chunked over the queries.
+"""Brute-force nearest neighbours, chunked over the queries.
 
-Counterpart of `gsavatar/ops/knn.py:mean_dist3`:
+Counterpart of `gsavatar/ops/knn.py:mean_dist3` and `knn_self`:
 ||x - y||^2 = ||x||^2 + ||y||^2 - 2 x.y with the cross term as one matrix
-product per chunk of queries, which bounds the (chunk, M) distance matrix."""
+product per chunk of queries, which bounds the (chunk, M) distance matrix.
+Ties between equal distances may order neighbours differently from the JAX
+package; the distances agree."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +21,23 @@ def mean_dist3(points, chunk: int = 1024):
         near = torch.topk(d, 4, dim=1, largest=False).values[:, 1:4]
         out.append(near.clamp_min(0.0).mean(dim=1))
     return torch.cat(out)
+
+
+def knn_self(x, k: int, chunk: int = 1024, mask=None):
+    """Indices (N, k) int32 of the k nearest neighbours of each point within
+    x, the point itself excluded (the first of the k + 1 nearest). `mask`
+    (N,) bool keeps dead arena slots from being anyone's neighbour; with
+    fewer than k other points the last neighbour repeats."""
+    pts = x if mask is None else torch.where(mask[:, None], x, 1e6)
+    kq = min(k + 1, pts.shape[0])
+    p_sq = (pts * pts).sum(-1)
+    out = []
+    for s in range(0, pts.shape[0], chunk):
+        q = pts[s:s + chunk]
+        d = (q * q).sum(-1)[:, None] + p_sq[None, :] - 2.0 * (q @ pts.T)
+        out.append(torch.topk(d, kq, dim=1, largest=False).indices)
+    idx = torch.cat(out)[:, 1:kq].to(torch.int32)
+    if idx.shape[1] < k:
+        pad = idx[:, -1:] if idx.shape[1] else torch.zeros_like(idx[:, :1])
+        idx = torch.cat([idx, pad.expand(-1, k - idx.shape[1])], dim=1)
+    return idx

@@ -4,7 +4,9 @@ Counterpart of `gsavatar/ops/rasterizer/api.py:rasterize` with its pairs
 route (`_rasterize_pairs`, `_untile`). One call returns the colour image
 and the alpha image, both read off the same compositor output; the
 background is blended outside the kernel. There is no backend string: the
-device of the tensors decides (K1 on CUDA, its plain version on the CPU)."""
+device of the tensors decides (K1 and K2 on CUDA, their plain versions on
+the CPU). Gradients reach means3d, colors, opacities, cov3d, the
+background and `means2d_offset` (see `project.project`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -57,14 +59,18 @@ def _untile(x, grid_x: int, grid_y: int, width: int, height: int):
 def rasterize(means3d, colors, opacities, cov3d, *, viewmatrix,
               full_projmatrix, tanfovx, tanfovy, background,
               config: RasterizeConfig,
-              active: Optional[torch.Tensor] = None) -> RasterizeResult:
+              active: Optional[torch.Tensor] = None,
+              means2d_offset: Optional[torch.Tensor] = None
+              ) -> RasterizeResult:
     """means3d (N, 3); colors (N, 3) RGB; opacities (N, 1) or (N,); cov3d
     (N, 6) upper-triangular world covariance; matrices in the row-vector
-    convention (Camera fields); background (3,); active (N,) arena mask."""
+    convention (Camera fields); background (3,); active (N,) arena mask;
+    means2d_offset (N, 2) zeros, the hook for screen-space gradients."""
     with record_function('rasterize/project'):
         proj = _project.project(
             means3d, cov3d, viewmatrix, full_projmatrix, tanfovx, tanfovy,
-            config.width, config.height, active=active)
+            config.width, config.height, active=active,
+            means2d_offset=means2d_offset)
         vis = proj.tiles_touched > 0
         side = torch.maximum(proj.rect_max[:, 0] - proj.rect_min[:, 0],
                              proj.rect_max[:, 1] - proj.rect_min[:, 1])
@@ -74,8 +80,8 @@ def rasterize(means3d, colors, opacities, cov3d, *, viewmatrix,
                                 config.grid_y, config.max_pairs,
                                 max_rect=config.max_rect)
     with record_function('rasterize/composite'):
-        raw = _composite.composite_pairs_fwd(pa.pair_data, pa.tile_start,
-                                             config.grid_x)   # (T, 8, 256)
+        raw = _composite.CompositePairs.apply(
+            pa.pair_data, pa.tile_start, config.grid_x)    # (T, 8, 256)
 
     def untile(rows):
         return _untile(raw[:, rows, :].transpose(1, 2), config.grid_x,

@@ -14,23 +14,30 @@ gives each tile its [start, end) range, and the first `max_pairs` survive
 [m2dx, m2dy, con_a, con_b, con_c, r, g, b, opac, 0, 0, 0], three 16-byte
 loads each. P is this frame's pair count: the compositor checks its own
 bounds, so no rows of padding follow. Reading the pair count is the one
-device sync of the render path."""
+device sync of the render path.
+
+The rows are gathered with `segsum.gather_rows`, so that the pair
+gradients reach the Gaussians through a sort and one K3 launch over the
+9 live columns, as the JAX package's `_pair_gather` VJP does."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
+from gsavatar_torch.ops.segsum import gather_rows
 from .project import Projection
 
 DEPTH_BITS = 20
 DEPTH_LEVELS = (1 << DEPTH_BITS) - 1
 PAIR_COLS = 12
+LIVE_COLS = 9   # leading columns of a pair row that carry data
 
 
 class PairArrays(NamedTuple):
     pair_data: torch.Tensor   # (P, PAIR_COLS) f32
-    pair_gauss: torch.Tensor  # (P,) int64 source Gaussian of each pair
+    pair_gauss: torch.Tensor  # (P,) int32 source Gaussian of each pair
     tile_start: torch.Tensor  # (num_tiles + 1,) int32 range offsets
     n_pairs: int
     pair_overflow: int        # pairs dropped past max_pairs
@@ -77,17 +84,17 @@ def build_pairs(proj: Projection, colors, opacities, grid_x: int, grid_y: int,
     n_pairs = min(total, max_pairs)
     sorted_key = sorted_key[:n_pairs]
     pair_gauss = torch.div(order[:n_pairs], max_rect * max_rect,
-                           rounding_mode='floor')
+                           rounding_mode='floor').to(torch.int32)
     tile_start = torch.searchsorted(
         sorted_key >> DEPTH_BITS,
         torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
         side='left').to(torch.int32)
 
-    gathered = torch.cat([
-        proj.means2d, proj.conics, colors, opacities.reshape(-1, 1),
-        torch.zeros((colors.shape[0], PAIR_COLS - 9), dtype=colors.dtype,
-                    device=dev)], dim=1)
-    return PairArrays(pair_data=gathered[pair_gauss].contiguous(),
+    gathered = torch.cat([proj.means2d, proj.conics, colors,
+                          opacities.reshape(-1, 1)], dim=1)
+    pair_data = F.pad(gather_rows(gathered, pair_gauss),
+                      (0, PAIR_COLS - LIVE_COLS))
+    return PairArrays(pair_data=pair_data,
                       pair_gauss=pair_gauss, tile_start=tile_start,
                       n_pairs=n_pairs,
                       pair_overflow=max(total - max_pairs, 0),

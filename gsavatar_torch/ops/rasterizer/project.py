@@ -4,7 +4,12 @@ Counterpart of `gsavatar/ops/rasterizer/project.py`: frustum cull at
 z <= 0.2, perspective projection through the camera's row-vector matrices,
 EWA 2D covariance J W Sigma W^T J^T with +0.3 px dilation and the
 1.3 tan(fov) clamp, radius ceil(3 sqrt(lambda_max)), and the 16x16 tile
-rect by int truncation. Plain elementwise tensor code."""
+rect by int truncation. Plain elementwise tensor code.
+
+`means2d_offset` (N, 2) is the hook through which training reads
+d(loss)/d(screen position) for the densify statistics: it is added to the
+NDC means, so its gradient is the NDC gradient times half the image size,
+the units of the reference CUDA kernel's dL_dmean2D."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -38,7 +43,8 @@ def _tile_index(v, grid: int):
 
 
 def project(means3d, cov3d, viewmatrix, full_projmatrix, tanfovx, tanfovy,
-            width, height, active=None, near: float = 0.2) -> Projection:
+            width, height, active=None, means2d_offset=None,
+            near: float = 0.2) -> Projection:
     """means3d (N, 3); cov3d (N, 6) upper triangle; matrices in the
     row-vector convention (p_h @ M)."""
     N = means3d.shape[0]
@@ -51,9 +57,11 @@ def project(means3d, cov3d, viewmatrix, full_projmatrix, tanfovx, tanfovy,
 
     p_hom = (p_hom4[:, :, None] * full_projmatrix[None]).sum(1)  # (N, 4)
     p_w = 1.0 / (p_hom[:, 3] + 1e-7)
-    p_proj = p_hom[:, :3] * p_w[:, None]
-    means2d = torch.stack([ndc_to_pix(p_proj[:, 0], width),
-                           ndc_to_pix(p_proj[:, 1], height)], dim=1)
+    ndc_xy = p_hom[:, :2] * p_w[:, None]
+    if means2d_offset is not None:
+        ndc_xy = ndc_xy + means2d_offset
+    means2d = torch.stack([ndc_to_pix(ndc_xy[:, 0], width),
+                           ndc_to_pix(ndc_xy[:, 1], height)], dim=1)
 
     focal_x = width / (2.0 * tanfovx)
     focal_y = height / (2.0 * tanfovy)

@@ -1,7 +1,9 @@
 """Area-weighted mesh surface sampling (host numpy).
 
-The port's own copy of `gsavatar/ops/sampling.py:sample_surface`, which
-seeds the Gaussian arena from the canonical body surface."""
+The port's own copy of `gsavatar/ops/sampling.py`: `sample_surface`, which
+seeds the Gaussian arena from the canonical body surface, and
+`sample_skinning_pool`, the skinning loss's pool of surface points and
+their SMPL weights."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,3 +31,14 @@ def sample_surface(vertices: np.ndarray, faces: np.ndarray, n: int,
     pts = (v0[face_idx] * b0[:, None] + v1[face_idx] * b1[:, None]
            + v2[face_idx] * b2[:, None])
     return pts.astype(np.float32), face_idx, bary.astype(np.float32)
+
+
+def sample_skinning_pool(vertices: np.ndarray, faces: np.ndarray,
+                         skinning_weights: np.ndarray, pool_size: int = 65536,
+                         seed: int = 0):
+    """Pool of (points (P, 3), SMPL skinning weights (P, 24)) on the body
+    surface, the weights interpolated barycentrically: the training step
+    draws the skinning loss's minibatch from it."""
+    pts, face_idx, bary = sample_surface(vertices, faces, pool_size, seed)
+    w = (skinning_weights[faces[face_idx]] * bary[..., None]).sum(axis=1)
+    return pts, w.astype(np.float32)

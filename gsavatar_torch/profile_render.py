@@ -1,15 +1,19 @@
-"""Where a rendered frame's time goes on the card.
+"""Where a rendered frame's or a training step's time goes on the card.
 
-    python -m gsavatar_torch.profile_render [--frames 10] [--trace PATH]
+    python -m gsavatar_torch.profile_render [--frames 10] [--train]
+                                            [--trace PATH]
 
 Renders the synthetic avatar at the bench shape (`config.BENCH_OVERRIDES`,
-seeded weights) through `InferenceScene.render_frame`: a few frames to warm
-up, then `torch.profiler` over `--frames` frames. Prints the wall time per
-frame (host clock, ended by a device sync), the device's busy time per frame
-(the sum of its kernel and copy times), the idle share, each stage span's
-host and device time (`render/converter`, `rasterize/*`), and the kernels
-that take the most device time. `--trace` also writes the Chrome trace.
-Needs a CUDA GPU."""
+seeded weights) through `InferenceScene.render_frame` or, with `--train`,
+takes training steps of the same avatar through `Scene` and
+`train.make_train_step` (bench.py's loss weights and learning rate at
+iteration 1000): a few to warm up, then `torch.profiler` over `--frames`
+of them. Prints the wall time per frame or step (host clock, ended by a
+device sync), the device's busy time per frame or step (the sum of its
+kernel and copy times), the idle share, each stage span's host and device
+time (`render/converter`, `rasterize/*`, and `train/*` for the losses,
+the backward pass and the updates), and the kernels that take the most
+device time. `--trace` also writes the Chrome trace. Needs a CUDA GPU."""
 from __future__ import annotations
 
 import argparse
@@ -20,36 +24,61 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from gsavatar_torch.config import BENCH_OVERRIDES
+from gsavatar_torch.config import BENCH_OVERRIDES, load_config
 from gsavatar_torch.device import resolve_device
 from gsavatar_torch.inference import synthetic_scene
 
 WARMUP = 3
-SPANS = ('render/', 'rasterize/')
+TRAIN_ITERATION = 1000   # bench.py's loss weights and learning rate
+SPANS = ('render/', 'rasterize/', 'train/')
 
 
 def _us(event) -> float:
     return event.time_range.end - event.time_range.start
 
 
+def _render_frames(seed, dev):
+    scene, cams = synthetic_scene(BENCH_OVERRIDES, seed, dev)
+    cams = [c.to(dev) for c in cams]
+    return lambda i: scene.render_frame(cams[i % len(cams)])
+
+
+def _train_steps(seed, dev):
+    from gsavatar_torch.scene import Scene
+    from gsavatar_torch.train import loss_weights, make_train_step
+    cfg = load_config(BENCH_OVERRIDES)
+    scene = Scene(cfg, seed=seed, device=dev)
+    state = scene.init_state()
+    ds = scene.train_dataset
+    cams = [ds[i] for i in range(len(ds))]
+    bucket = scene.bucket_for(int(state.gauss_aux.alive.sum()))
+    weights = dict(loss_weights(cfg, TRAIN_ITERATION), _in_densify_window=1.0)
+    xyz_lr = scene.xyz_lr_fn(TRAIN_ITERATION)
+    step = make_train_step(scene)
+    # the step updates `state` in place
+    return lambda i: step(state, cams[i % len(cams)], TRAIN_ITERATION + i,
+                          weights, xyz_lr, bucket=bucket)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--frames', type=int, default=10)
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--train', action='store_true',
+                    help='profile training steps instead of frames')
     ap.add_argument('--trace', default=None)
     args = ap.parse_args(argv)
     dev = resolve_device('cuda')
-    scene, cams = synthetic_scene(BENCH_OVERRIDES, args.seed, dev)
-    cams = [c.to(dev) for c in cams]
+    run = (_train_steps if args.train else _render_frames)(args.seed, dev)
     for i in range(WARMUP):
-        scene.render_frame(cams[i % len(cams)])
+        run(i)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(args.frames):
-            scene.render_frame(cams[i % len(cams)])
+            run(WARMUP + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
     if args.trace:
@@ -82,19 +111,25 @@ def main(argv=None):
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + _us(e) / 1e3 / n, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    print(f"{n} frames: wall {wall_ms:.3f} ms/frame, device busy "
-          f"{busy_ms:.3f} ms/frame, idle share "
+    unit = 'step' if args.train else 'frame'
+    print(f"{n} {unit}s: wall {wall_ms:.3f} ms/{unit}, device busy "
+          f"{busy_ms:.3f} ms/{unit}, idle share "
           f"{1.0 - busy_ms / wall_ms:.3f}, {len(device) / n:.0f} device "
-          f"operations per frame")
+          f"operations per {unit}")
     for k, v in spans.items():
         print(f"span {k}: host {v['host_ms']:.3f} ms, device "
-              f"{v['device_ms']:.3f} ms per frame")
+              f"{v['device_ms']:.3f} ms per {unit}")
+    # autograd's device thread launches the backward pass's kernels, which
+    # no span of the main thread records on the device
+    outside = busy_ms - sum(v['device_ms'] for v in spans.values())
+    print(f"device ms outside the spans: {outside:.3f} per {unit}")
     for name, (ms, count) in top:
         print(f"  {ms:8.3f} ms x{count / n:5.0f}  {name[:100]}")
-    print(json.dumps({'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+    print(json.dumps({'unit': unit, 'wall_ms': wall_ms,
+                      'device_busy_ms': busy_ms,
                       'idle_share': 1.0 - busy_ms / wall_ms,
                       'device_ops_per_frame': len(device) / n,
-                      'spans': spans,
+                      'spans': spans, 'device_ms_outside_spans': outside,
                       'device': torch.cuda.get_device_name(0)}))
 
 

@@ -31,8 +31,10 @@ def batch_rigid_transform(rot_mats, joints, parents):
     Returns (posed_joints (B, J, 3), rel_transforms (B, J, 4, 4),
     abs_transforms (B, J, 4, 4))."""
     parents = [int(p) for p in parents]
-    rel_joints = joints - torch.cat(
-        [torch.zeros_like(joints[:, :1]), joints[:, parents[1:]]], dim=1)
+    # one select per joint: a list index would backpropagate by scatter
+    rel_joints = joints - torch.stack(
+        [torch.zeros_like(joints[:, 0])] + [joints[:, p] for p in parents[1:]],
+        dim=1)
     transforms_mat = _transform_mat(rot_mats, rel_joints[..., None])
 
     chain = [transforms_mat[:, 0]]

@@ -46,7 +46,7 @@ def get_02v_bone_transforms_torch(Jtr):
             if i > 0:
                 t = R @ (t - Jtr[chain[i - 1]]) + ts[i - 1]
             ts.append(t)
-        ts = torch.stack(ts) - Jtr[list(chain)] @ R.T
+        ts = torch.stack(ts) - torch.stack([Jtr[j] for j in chain]) @ R.T
         idx = list(chain)
         out[idx, :3, :3] = R
         out[idx, :3, 3] = ts

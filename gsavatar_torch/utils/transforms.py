@@ -2,7 +2,9 @@
 
 Counterpart of `gsavatar/utils/transforms.py`. Every function batches over
 the leading axes. The per-point 3x3 products stay elementwise (`matvec3`,
-`matmul3`) as in the JAX package, so both sum in the same order."""
+`matmul3`) as in the JAX package, so both sum in the same order. Also the
+training-time view-noise rotation (`augm_rot_matrix`, from explicit
+angles) and the position learning-rate schedule (`expon_lr_schedule`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -91,3 +93,59 @@ def euler_z(deg: float) -> np.ndarray:
     r = np.deg2rad(deg)
     c, s = np.cos(r), np.sin(r)
     return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float64)
+
+
+def augm_rot_matrix(rx, ry, rz):
+    """The view-noise rotation rot_x @ (rot_y @ rot_z) (3, 3) from three
+    angles in degrees (0-d tensors): the matrix of
+    `gsavatar/utils/transforms.py:augm_rot_matrix`, whose random angles the
+    caller draws (`draw_view_angles`) or is handed."""
+    d = np.pi / 180.0
+    sx, cx = torch.sin(d * rx), torch.cos(d * rx)
+    sy, cy = torch.sin(d * ry), torch.cos(d * ry)
+    sz, cz = torch.sin(d * rz), torch.cos(d * rz)
+    one, zero = torch.ones_like(sx), torch.zeros_like(sx)
+
+    def mat(*rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    rot_x = mat((one, zero, zero), (zero, cx, -sx), (zero, sx, cx))
+    rot_y = mat((cy, zero, sy), (zero, one, zero), (-sy, zero, cy))
+    rot_z = mat((cz, -sz, zero), (sz, cz, zero), (zero, zero, one))
+    return rot_x @ (rot_y @ rot_z)
+
+
+def draw_view_angles(generator: torch.Generator, roll: float, pitch: float,
+                     yaw: float):
+    """The random angles of `augm_rot_matrix` (degrees, f32): a normal draw
+    times the roll range, a uniform draw times the pitch range and a normal
+    draw times the yaw range, each clipped to twice its range, as the JAX
+    package draws them."""
+    n = torch.randn(2, generator=generator)
+    u = torch.rand(1, generator=generator)
+    rx = torch.clamp(n[0] * roll, -2 * roll, 2 * roll)
+    ry = torch.clamp(u[0] * pitch, -2 * pitch, 2 * pitch)
+    rz = torch.clamp(n[1] * yaw, -2 * yaw, 2 * yaw)
+    return torch.stack([rx, ry, rz])
+
+
+def expon_lr_schedule(lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+                      max_steps=1000000):
+    """Log-linear learning-rate interpolation with an optional sine delay
+    ramp, in f32 as the JAX package computes it. Returns a function
+    step -> lr (a Python float)."""
+    def helper(step):
+        if lr_init == 0.0 and lr_final == 0.0:
+            return 0.0
+        step = torch.tensor(float(step), dtype=torch.float32)
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * np.pi * torch.clamp(step / lr_delay_steps, 0, 1))
+        else:
+            delay_rate = 1.0
+        t = torch.clamp(step / max_steps, 0, 1)
+        log_lerp = torch.exp(float(np.log(lr_init)) * (1 - t)
+                             + float(np.log(lr_final)) * t)
+        lr = delay_rate * log_lerp
+        return 0.0 if float(step) < 0 else float(lr)
+    return helper

@@ -10,12 +10,20 @@ JAX is not installed:
 
 Tolerances: K1 1e-5 absolute. The kernel rounds power, alpha and T exactly
 as the plain version's tensor expression does, so the two include the same
-pairs; the colour sums are taken in another order."""
+pairs; the colour sums are taken in another order. K2 1e-4 of each value's
+own scale (`composite.composite_pairs_bwd_scale`: the sum over the tile's
+pixels of its terms' magnitudes): the same pairs, but the 256-pixel sums,
+the colour prefixes and T rounded in another order. K3 1e-5 of each segment's sum of |values| (f32 adds in
+an order that changes from run to run) plus 4 float64 ulps of the plain
+version's largest running sum. The small training step on the card
+against the CPU: loss terms 1e-4 relative, each gradient leaf with a
+cosine > 0.999 and a mean error < 1e-3 of its largest value (bench.py)."""
 import numpy as np
 import pytest
 import torch
 
 from gsavatar_torch.camera.camera import make_camera
+from gsavatar_torch.ops import segsum_blocked
 from gsavatar_torch.ops.rasterizer import composite
 from gsavatar_torch.ops.rasterizer.pairs import build_pairs
 from gsavatar_torch.ops.rasterizer.project import project
@@ -106,3 +114,130 @@ def test_render_on_the_card_matches_the_cpu(cuda):
         d = (x.double().cpu() - y.double()).abs()
         assert float(d.mean()) < 1e-4
         assert float((d > 1e-2).double().mean()) < 1e-3
+
+
+@pytest.mark.parametrize('n,seed,scale', [(200, 0, 0.05), (3000, 1, 0.08)],
+                         ids=['sparse', 'saturating'])
+def test_k2_kernel_matches_plain(cuda, n, seed, scale):
+    pa = _pairs(n, seed, scale, cuda)
+    fwd = composite.composite_pairs_fwd(pa.pair_data, pa.tile_start, GRID)
+    ct = torch.rand(fwd.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(seed)) - 0.5
+    before = composite.composite_pairs_bwd.launches
+    got = composite.composite_pairs_bwd(pa.pair_data, pa.tile_start, ct, fwd,
+                                        GRID)
+    torch.cuda.synchronize()
+    assert composite.composite_pairs_bwd.launches == before + 1
+    want = composite.composite_pairs_bwd_plain(pa.pair_data, pa.tile_start,
+                                               ct, fwd, GRID)
+    assert got.shape == pa.pair_data.shape
+    assert not got[:, 9:].any()
+    scale = composite.composite_pairs_bwd_scale(pa.pair_data, pa.tile_start,
+                                                ct, fwd, GRID)
+    assert bool(((got - want).abs() <= 1e-4 * scale).all())
+    assert float(want[:, :9].abs().amax(0).min()) > 0.0
+
+
+@pytest.mark.parametrize('M,C,S', [(5000, 2, 1200), (200000, 9, 50000),
+                                   (3000000, 2, 1 << 20), (4000, 3, 700),
+                                   (40000, 6, 9000)])
+def test_k3_kernel_matches_plain(cuda, M, C, S):
+    """Sorted ids with empty segments and dropped ids (>= S) whose rows
+    hold NaN."""
+    g = torch.Generator(cuda).manual_seed(M)
+    ids = torch.sort(torch.randint(0, S + S // 20, (M,), device=cuda,
+                                   dtype=torch.int32, generator=g)).values
+    values = torch.randn((M, C), device=cuda, generator=g)
+    values[ids >= S] = float('nan')
+    before = segsum_blocked.segment_sum_sorted_blocked.launches
+    got = segsum_blocked.segment_sum_sorted_blocked(values, ids, S)
+    torch.cuda.synchronize()
+    assert segsum_blocked.segment_sum_sorted_blocked.launches == before + 1
+    plain = segsum_blocked.segment_sum_sorted_blocked_plain
+    want = plain(values, ids, S)
+    mag = plain(values.abs(), ids, S)
+    floor = 4 * torch.finfo(torch.float64).eps * float(
+        values.nan_to_num(0.0).double().abs().sum(0).max())
+    assert got.shape == (S, C) and bool(got.isfinite().all())
+    assert bool(((got - want).abs() <= 1e-5 * mag + floor).all())
+
+
+def test_k2_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    pd = torch.zeros((4, 12), device=cuda)
+    ts = torch.tensor([0, 4], dtype=torch.int32, device=cuda)
+    ct = torch.zeros((1, 8, 256), device=cuda)
+    bwd = composite.composite_pairs_bwd
+    with pytest.raises(ValueError):
+        bwd(pd.double(), ts, ct, ct, 1)
+    with pytest.raises(ValueError):
+        bwd(pd, ts, ct[:, :5], ct, 1)
+    with pytest.raises(ValueError):
+        bwd(pd, ts, ct, ct.transpose(1, 2).contiguous().transpose(1, 2), 1)
+    with pytest.raises(ValueError):
+        bwd(pd, ts, ct.cpu(), ct, 1)
+    k3 = segsum_blocked.segment_sum_sorted_blocked
+    v = torch.zeros((10, 2), device=cuda)
+    ids = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        k3(v, ids.long(), 4)
+    for c in (1, 4, 17):     # built for the training step's 2, 3, 6, 9
+        with pytest.raises(ValueError):
+            k3(torch.zeros((10, c), device=cuda), ids, 4)
+    with pytest.raises(ValueError):
+        k3(torch.zeros((2, 10), device=cuda).T, ids, 4)
+    with pytest.raises(ValueError):
+        k3(v, ids[:5], 4)
+
+
+def _small_train_scene(device):
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.scene import Scene
+    cfg = load_config(SMALL + ["dataset.n_target_gaussians=512",
+                               "opt.skinning_pool_size=2048",
+                               "opt.n_reg_pts=128"])
+    scene = Scene(cfg, seed=0, device=device)
+    return cfg, scene, scene.init_state()
+
+
+def test_small_train_step_on_the_card_matches_the_cpu(cuda):
+    """One forward and backward of the training step from the same state,
+    camera and draws, past every delay gate: the loss terms and every
+    gradient leaf (K1, K2 and K3 on the card; their plain versions on the
+    CPU)."""
+    from gsavatar_torch.train import draw, loss_weights, make_grad_fn
+    cfg, cpu, cpu_state = _small_train_scene('cpu')
+    _, gpu, gpu_state = _small_train_scene(cuda)
+    gpu.converter.load_state_dict(cpu.converter.state_dict())
+    gpu_state.gauss_params = cpu_state.gauss_params.map(lambda x: x.to(cuda))
+    gpu_state.gauss_aux = cpu_state.gauss_aux.map(lambda x: x.to(cuda))
+    cam = cpu.train_dataset[0]
+    draws = draw(cpu, cpu_state.generator)
+    it = 6000
+    w = loss_weights(cfg, it)
+    bucket = cpu.bucket_for(int(cpu_state.gauss_aux.alive.sum()))
+    counts = (composite.composite_pairs_bwd.launches,
+              segsum_blocked.segment_sum_sorted_blocked.launches)
+    m_g, _, g_g = make_grad_fn(gpu)(
+        gpu_state, cam.to(cuda).replace(image=cam.image.to(cuda),
+                                        mask=cam.mask.to(cuda)),
+        it, w, draws.to(cuda), 0, bucket, gpu.raster_config)
+    torch.cuda.synchronize()
+    assert composite.composite_pairs_bwd.launches == counts[0] + 1
+    assert segsum_blocked.segment_sum_sorted_blocked.launches == counts[1] + 6
+    m_c, _, g_c = make_grad_fn(cpu)(cpu_state, cam, it, w, draws, 0, bucket,
+                                    cpu.raster_config)
+    for k, v in m_c.items():
+        if k.startswith('loss/') and abs(float(v)) > 1e-9:
+            assert abs(float(m_g[k]) - float(v)) <= 1e-4 * abs(float(v)), k
+    leaves = [(k, g_g['conv'][k], v) for k, v in g_c['conv'].items()]
+    leaves += [(f, getattr(g_g['gauss'], f), getattr(g_c['gauss'], f))
+               for f in ('xyz', 'features_dc', 'features_rest', 'scaling',
+                         'rotation', 'opacity')]
+    leaves.append(('means2d', g_g['means2d'], g_c['means2d']))
+    for name, a, b in leaves:
+        a, b = a.double().cpu().reshape(-1), b.double().reshape(-1)
+        if not float(b.abs().max()) > 0.0:
+            continue
+        rel = float((a - b).abs().mean()) / max(float(b.abs().max()), 1e-3)
+        cos = float(a @ b) / (float(a.norm()) * float(b.norm()))
+        assert cos > 0.999 and rel < 1e-3, (name, cos, rel)

@@ -1,7 +1,8 @@
 """The port stands alone: gsavatar_torch and chip_smoke.py import nothing of
 JAX or of the JAX package, no module builds or imports a GPU toolchain at
-import time, and the entry points refuse to run without a GPU unless the
-caller asks for the CPU."""
+import time, the entry points refuse to run without a GPU unless the
+caller asks for the CPU, and a kernel library's name follows every source
+it is built from."""
 import ast
 import importlib
 import pkgutil
@@ -80,6 +81,10 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu():
         InferenceScene(cfg, ds.metadata, ds.assets, state)
     scene = InferenceScene(cfg, ds.metadata, ds.assets, state, device='cpu')
     assert scene.device.type == 'cpu'
+    from gsavatar_torch.scene import Scene
+    with pytest.raises(RuntimeError, match='GPU'):
+        Scene(cfg)
+    assert Scene(cfg, device='cpu').device.type == 'cpu'
 
 
 def test_k1_wrapper_takes_plain_version_only_for_cpu_tensors():
@@ -94,3 +99,27 @@ def test_k1_wrapper_takes_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         composite.composite_pairs_fwd(pair_data.to('meta'),
                                       tile_start.to('meta'), 1)
+
+
+def test_kernel_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by a hash of its .cu and of every header under
+    csrc/: editing a shared header renames (so rebuilds) each library,
+    editing another kernel's source renames only that one. Checked on a
+    copy of csrc/."""
+    import shutil
+    from gsavatar_torch import kernels
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, 'CSRC', csrc)
+    names = kernels.sources()
+    assert {'composite_fwd', 'composite_bwd', 'segsum'} <= set(names)
+    before = {n: kernels._target(n) for n in names}
+    header = csrc / 'composite_common.cuh'
+    header.write_text(header.read_text() + '\n// edited\n')
+    after = {n: kernels._target(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    seg = csrc / 'segsum.cu'
+    seg.write_text(seg.read_text() + '\n// edited\n')
+    again = {n: kernels._target(n) for n in names}
+    assert again['segsum'] != after['segsum']
+    assert again['composite_fwd'] == after['composite_fwd']

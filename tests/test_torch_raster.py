@@ -1,14 +1,21 @@
 """gsavatar_torch's rasterizer against gsavatar's on the CPU: the plain K1
-against the Pallas kernel in interpret mode on the same pair arrays, the
-pair build against the JAX pair build, and `rasterize` against JAX
-`rasterize(backend='xla')` and the float64 golden oracle fixture.
+and K2 against the Pallas kernels in interpret mode on the same pair
+arrays, the pair build against the JAX pair build, `rasterize` against JAX
+`rasterize(backend='xla')` and the float64 golden oracle fixture, and the
+gradients of `rasterize` (through `CompositePairs`, K3's plain version and
+the `means2d_offset` hook) against `jax.grad` of JAX
+`rasterize(backend='pallas_interpret')`.
 
 Tolerances: K1 3e-5 absolute (a running product of (1 - alpha) against the
-kernel's exp of a cumulative log1p sum differ in rounding only). The whole
-rasterizer is gated on distribution statistics (mean error < 1e-4 and a
-fraction < 1e-3 of pixels off by > 1e-2, bench.py's parity gates), not the
-per-pixel max: the sort is unstable, so Gaussians with equal quantized
-depth may composite in another order."""
+kernel's exp of a cumulative log1p sum differ in rounding only). K2 1e-4 of
+the largest |value| of the same column in the same tile: the same
+transmittance difference, amplified by 1 / (1 - alpha) in the suffix term,
+and the 256-pixel sums taken in another order. The whole rasterizer is
+gated on distribution statistics (mean error < 1e-4 and a fraction < 1e-3
+of pixels off by > 1e-2, bench.py's parity gates), and its gradients on
+bench.py's gate (mean error < 1e-3 of the largest value, per leaf) plus a
+cosine > 0.999, not the per-element max: the sort is unstable, so
+Gaussians with equal quantized depth may composite in another order."""
 import os
 
 import jax
@@ -22,7 +29,8 @@ from torch_parity import assert_render_gates, close
 from gsavatar_torch.ops.rasterizer import RasterizeConfig as TConfig
 from gsavatar_torch.ops.rasterizer import rasterize as t_rasterize
 from gsavatar_torch.ops.rasterizer.composite import (
-    composite_pairs_fwd, composite_pairs_fwd_plain)
+    composite_pairs_bwd, composite_pairs_bwd_scale, composite_pairs_fwd,
+    composite_pairs_fwd_plain)
 from gsavatar_torch.ops.rasterizer.pairs import build_pairs as t_build_pairs
 from gsavatar_torch.ops.rasterizer.project import project as t_project
 
@@ -31,7 +39,8 @@ from gsavatar.ops.rasterizer import RasterizeConfig as JConfig
 from gsavatar.ops.rasterizer import rasterize as j_rasterize
 from gsavatar.ops.rasterizer.pairs import build_pairs as j_build_pairs
 from gsavatar.ops.rasterizer.pallas_composite import (
-    PAIR_LANES, composite_pairs_fwd as j_composite_pairs_fwd)
+    PAIR_LANES, composite_pairs_bwd as j_composite_pairs_bwd,
+    composite_pairs_fwd as j_composite_pairs_fwd)
 from gsavatar.ops.rasterizer.project import project as j_project
 from gsavatar.utils.transforms import covariance_from_scaling_rotation
 
@@ -88,6 +97,134 @@ def test_plain_k1_matches_pallas_interpret(n, seed):
     close(got, want, rtol=0, atol=3e-5)
     assert float(got[:, 3].max()) > 0.5       # some pixels well covered
     np.testing.assert_array_equal(got[:, 5:].numpy(), 0.0)
+
+
+def tile_column_scale(values, tile_start):
+    """|values| (P, C) -> the largest |value| of each row's column in the
+    row's tile, per element."""
+    ts = np.asarray(tile_start)
+    v = np.abs(np.asarray(values))
+    out = np.zeros_like(v)
+    for t in range(len(ts) - 1):
+        if ts[t + 1] > ts[t]:
+            out[ts[t]:ts[t + 1]] = v[ts[t]:ts[t + 1]].max(0)
+    return out
+
+
+@pytest.mark.parametrize('n,seed', [(40, 1), (120, 5)])
+def test_plain_k2_matches_pallas_interpret(n, seed):
+    """The same pair arrays, forward output and cotangents through the plain
+    K2 and `composite_pairs_bwd(..., interpret=True)`."""
+    means, colors, opac, cov = _scene(n, seed)
+    _, tp = _projections(means, cov, _camera())
+    pa = t_build_pairs(tp, torch.from_numpy(colors), torch.from_numpy(opac),
+                       GRID, GRID, 2 ** 13)
+    fwd = composite_pairs_fwd(pa.pair_data, pa.tile_start, GRID)
+    ct = np.random.default_rng(seed).uniform(
+        -1.0, 1.0, (GRID * GRID, 8, 256)).astype(np.float32)
+    got = composite_pairs_bwd(pa.pair_data, pa.tile_start,
+                              torch.from_numpy(ct), fwd, GRID)
+    chunk = 32
+    pd = np.zeros((pa.n_pairs + chunk, PAIR_LANES), np.float32)
+    pd[:pa.n_pairs, :12] = pa.pair_data.numpy()
+    want = np.asarray(j_composite_pairs_bwd(
+        jnp.asarray(pd), jnp.asarray(pa.tile_start.numpy()), jnp.asarray(ct),
+        jnp.asarray(fwd.numpy()), num_tiles=GRID * GRID, grid_x=GRID,
+        chunk=chunk, interpret=True))[:pa.n_pairs, :12]
+    assert got.shape == (pa.n_pairs, 12)
+    np.testing.assert_array_equal(got[:, 9:].numpy(), 0.0)
+    scale = tile_column_scale(want, pa.tile_start.numpy())
+    np.testing.assert_array_less(np.abs(got.numpy() - want),
+                                 1e-4 * scale + 1e-30)
+    assert np.abs(want[:, :9]).max(0).min() > 0.0   # every column is live
+
+
+@pytest.mark.parametrize('n,seed', [(40, 1), (120, 5)])
+def test_k2_row_scale_bounds_the_gradient(n, seed):
+    """`composite_pairs_bwd_scale`, the yardstick K2 is held to on the card:
+    it bounds every |value| of the plain K2, is zero exactly on the rows no
+    pixel includes, and the Pallas kernel (a log-space transmittance, other
+    sums) lands within 1e-5 of it from the plain K2, row by row (measured
+    below 1e-6)."""
+    means, colors, opac, cov = _scene(n, seed)
+    _, tp = _projections(means, cov, _camera())
+    pa = t_build_pairs(tp, torch.from_numpy(colors), torch.from_numpy(opac),
+                       GRID, GRID, 2 ** 13)
+    fwd = composite_pairs_fwd(pa.pair_data, pa.tile_start, GRID)
+    ct = np.random.default_rng(seed).uniform(
+        -1.0, 1.0, (GRID * GRID, 8, 256)).astype(np.float32)
+    args = (pa.pair_data, pa.tile_start, torch.from_numpy(ct), fwd, GRID)
+    got = composite_pairs_bwd(*args).numpy()
+    scale = composite_pairs_bwd_scale(*args).numpy()
+    assert scale.shape == got.shape and not scale[:, 9:].any()
+    np.testing.assert_array_less(np.abs(got), scale * (1 + 1e-6) + 1e-30)
+    dead = ~scale[:, :9].any(1)
+    assert 0 < dead.sum() < len(dead) and not got[dead].any()
+    chunk = 32
+    pd = np.zeros((pa.n_pairs + chunk, PAIR_LANES), np.float32)
+    pd[:pa.n_pairs, :12] = pa.pair_data.numpy()
+    want = np.asarray(j_composite_pairs_bwd(
+        jnp.asarray(pd), jnp.asarray(pa.tile_start.numpy()), jnp.asarray(ct),
+        jnp.asarray(fwd.numpy()), num_tiles=GRID * GRID, grid_x=GRID,
+        chunk=chunk, interpret=True))[:pa.n_pairs, :12]
+    assert (np.abs(got - want) <= 1e-5 * scale).all()
+
+
+def _grad_gate(got, want, name):
+    """bench.py's gradient gate and a cosine, for one leaf."""
+    a = np.asarray(got, np.float64).ravel()
+    b = np.asarray(want, np.float64).ravel()
+    rel = np.abs(a - b).mean() / max(np.abs(b).max(), 1e-3)
+    cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+    assert rel < 1e-3 and cos > 0.999, (name, rel, cos)
+
+
+def test_rasterize_gradients_match_jax_pallas_interpret():
+    """d(loss)/d(means3d, colours, opacities, cov3d, background,
+    means2d_offset) of a weighted sum of the image and the alpha image:
+    CompositePairs (plain K2) and the pair gather's K3 against JAX's
+    custom VJPs, the screen-space hook in NDC times half the image size."""
+    means, colors, opac, cov = _scene(200, 7)
+    cam = _camera()
+    rng = np.random.default_rng(11)
+    bg = np.array([0.2, 0.1, 0.3], np.float32)
+    ct_img = rng.uniform(-1, 1, (H, W, 3)).astype(np.float32)
+    ct_alpha = rng.uniform(-1, 1, (H, W)).astype(np.float32)
+    offset = np.zeros((200, 2), np.float32)
+    mats = [np.asarray(cam.world_view_transform),
+            np.asarray(cam.full_proj_transform)]
+    jcfg = JConfig(width=W, height=H, max_pairs=2 ** 13, chunk=32,
+                   backend='pallas_interpret')
+
+    def j_loss(m, c, o, cv, b, off):
+        res = j_rasterize(m, c, o, cv, viewmatrix=jnp.asarray(mats[0]),
+                          full_projmatrix=jnp.asarray(mats[1]),
+                          tanfovx=cam.tanfovx, tanfovy=cam.tanfovy,
+                          background=b, config=jcfg, means2d_offset=off)
+        return (jnp.sum(res.image * ct_img)
+                + jnp.sum(res.alpha * ct_alpha))
+
+    args = (means, colors, opac, cov, bg, offset)
+    want = jax.jit(jax.grad(j_loss, argnums=tuple(range(6))))(
+        *[jnp.asarray(a) for a in args])
+    t_args = [torch.from_numpy(np.asarray(a)).requires_grad_()
+              for a in args]
+    m, c, o, cv, b, off = t_args
+    res = t_rasterize(m, c, o, cv,
+                      viewmatrix=torch.from_numpy(mats[0]),
+                      full_projmatrix=torch.from_numpy(mats[1]),
+                      tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, background=b,
+                      config=TConfig(width=W, height=H, max_pairs=2 ** 13),
+                      means2d_offset=off)
+    loss = (res.image * torch.from_numpy(ct_img)).sum() \
+        + (res.alpha * torch.from_numpy(ct_alpha)).sum()
+    got = torch.autograd.grad(loss, t_args)
+    names = ('means3d', 'colors', 'opacities', 'cov3d', 'background',
+             'means2d_offset')
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        _grad_gate(g.numpy(), w, name)
+    assert np.abs(np.asarray(want[5])).max() > 0.0
 
 
 def test_plain_k1_stops_below_transmittance_floor():

@@ -1,0 +1,153 @@
+"""gsavatar_torch's segment sums (K3's plain version and ops/segsum.py)
+against gsavatar's on the CPU: the Pallas kernel in interpret mode, the
+portable cumsum formulation, the unsorted and per-level variants, and the
+gradient of `gather_rows`.
+
+Tolerances: against the interpret-mode kernel, 1e-5 of each segment's sum
+of |values| (the kernel splits values in bf16 hi/lo parts, ~2^-18 relative
+per value; the plain version sums in float64); against the cumsum
+formulation, 4 f32 ulps of the largest running sum (its error is a
+difference of two f32 prefix sums). Dropped ids carry NaN, which neither
+side may read."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gsavatar_torch.ops import segsum as tseg
+from gsavatar_torch.ops.segsum_blocked import (
+    block_starts, segment_sum_sorted_blocked,
+    segment_sum_sorted_blocked_plain)
+
+from gsavatar.ops import segsum as jseg
+from gsavatar.ops.segsum_pallas import segment_sum_sorted_blocked_t
+
+
+def _sorted_input(M, C, S, seed, drop=20, gap=3):
+    """Sorted ids with empty segments (every `gap`-th id unused) and `drop`
+    dropped rows (ids >= S) carrying NaN."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, S, size=M - drop)
+    ids = ids[ids % gap != 1]
+    ids = np.sort(np.concatenate([ids, rng.integers(S, S + 40, size=drop)]))
+    vals = rng.standard_normal((ids.shape[0], C)).astype(np.float32)
+    vals[ids >= S] = np.nan
+    return ids.astype(np.int32), vals
+
+
+def _cumsum_atol(vals_sorted):
+    """4 f32 ulps of the largest running sum over the rows in sorted
+    order: the error bound of the JAX package's cumsum formulation."""
+    running = np.abs(np.cumsum(np.nan_to_num(vals_sorted), axis=0)).max()
+    return 4 * np.finfo(np.float32).eps * running
+
+
+def _abs_sums(ids, vals, S):
+    out = np.zeros((S, vals.shape[1]))
+    keep = ids < S
+    np.add.at(out, ids[keep], np.abs(vals[keep]).astype(np.float64))
+    return out
+
+
+@pytest.mark.parametrize('M,C,S', [(1536, 2, 300), (2000, 9, 700),
+                                   (900, 1, 1100)])
+def test_plain_k3_matches_pallas_interpret(M, C, S):
+    ids, vals = _sorted_input(M, C, S, seed=C)
+    got = segment_sum_sorted_blocked_plain(torch.from_numpy(vals),
+                                           torch.from_numpy(ids), S)
+    want = np.asarray(segment_sum_sorted_blocked_t(
+        jnp.asarray(vals.T), jnp.asarray(ids), S, interpret=True))
+    assert got.shape == (S, C) and got.dtype == torch.float32
+    assert bool(got.isfinite().all())
+    np.testing.assert_array_less(np.abs(got.numpy() - want),
+                                 1e-5 * _abs_sums(ids, vals, S) + 1e-30)
+    empty = np.setdiff1d(np.arange(S), ids)
+    assert empty.size and not got.numpy()[empty].any()
+
+
+@pytest.mark.parametrize('M,C,S', [(5000, 3, 1200), (20000, 6, 4000)])
+def test_plain_k3_matches_cumsum_formulation(M, C, S):
+    ids, vals = _sorted_input(M, C, S, seed=M)
+    got = segment_sum_sorted_blocked_plain(torch.from_numpy(vals),
+                                           torch.from_numpy(ids), S)
+    want = np.asarray(jseg.segment_sum_sorted(jnp.asarray(vals),
+                                              jnp.asarray(ids), S))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=_cumsum_atol(vals))
+
+
+def test_k3_wrapper_takes_plain_version_only_for_cpu_tensors():
+    ids, vals = _sorted_input(400, 2, 100, seed=3)
+    before = segment_sum_sorted_blocked.launches
+    out = segment_sum_sorted_blocked(torch.from_numpy(vals),
+                                     torch.from_numpy(ids), 100)
+    assert segment_sum_sorted_blocked.launches == before
+    torch.testing.assert_close(out, segment_sum_sorted_blocked_plain(
+        torch.from_numpy(vals), torch.from_numpy(ids), 100))
+    with pytest.raises(ValueError):
+        segment_sum_sorted_blocked(torch.from_numpy(vals).to('meta'),
+                                   torch.from_numpy(ids).to('meta'), 100)
+
+
+def test_block_starts_end_before_dropped_ids():
+    """The kernel's block spans: block b starts at the first id >= 512 b,
+    and the last span ends before the first dropped id."""
+    ids = torch.tensor([0, 0, 3, 511, 512, 700, 1000, 1001, 1500],
+                       dtype=torch.int32)
+    torch.testing.assert_close(block_starts(ids, 1001),
+                               torch.tensor([0, 4, 7], dtype=torch.int32))
+
+
+def test_segment_sum_unsorted_matches_jax():
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, 600, size=4000).astype(np.int32)
+    vals = rng.standard_normal((4000, 9)).astype(np.float32)
+    got = tseg.segment_sum(torch.from_numpy(vals), torch.from_numpy(ids), 500)
+    want = np.asarray(jseg.segment_sum(jnp.asarray(vals), jnp.asarray(ids),
+                                       500))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=_cumsum_atol(vals[np.argsort(ids)]))
+
+
+def test_segment_sum_leveled_matches_jax():
+    """Per-level ids with the level offsets: one sorted id sequence over
+    every level (the hash-table backward)."""
+    rng = np.random.default_rng(6)
+    L, Mp, T = 4, 3000, 256
+    ids = rng.integers(0, T, size=(L, Mp)).astype(np.int32)
+    vals = rng.standard_normal((L, Mp, 2)).astype(np.float32)
+    got = tseg.segment_sum_leveled(torch.from_numpy(vals),
+                                   torch.from_numpy(ids), T)
+    want = np.asarray(jseg.segment_sum_leveled(jnp.asarray(vals),
+                                               jnp.asarray(ids), T))
+    assert got.shape == (L * T, 2)
+    order = np.argsort(ids, axis=1, kind='stable')
+    flat = np.take_along_axis(vals, order[..., None], axis=1).reshape(-1, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=_cumsum_atol(flat))
+
+
+@pytest.mark.parametrize('C', [3, 6])
+def test_gather_rows_value_and_gradient(C):
+    """Forward: a clipped row gather (ids >= S read the last row). Backward:
+    the cotangent rows summed per source row, out-of-range ids dropped."""
+    rng = np.random.default_rng(C)
+    S, M = 300, 1500
+    src = rng.standard_normal((S, C)).astype(np.float32)
+    idx = rng.integers(0, S + 10, size=M).astype(np.int32)
+    ct = rng.standard_normal((M, C)).astype(np.float32)
+    t_src = torch.from_numpy(src).requires_grad_()
+    out = tseg.gather_rows(t_src, torch.from_numpy(idx))
+    (t_grad,) = torch.autograd.grad(out, t_src, torch.from_numpy(ct))
+    j_out, vjp = jax.vjp(lambda s: jseg.gather_rows(s, jnp.asarray(idx)),
+                         jnp.asarray(src))
+    (j_grad,) = vjp(jnp.asarray(ct))
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(j_out))
+    np.testing.assert_allclose(
+        t_grad.numpy(), np.asarray(j_grad), rtol=0,
+        atol=_cumsum_atol(ct[np.argsort(idx)]))
+    ref = np.zeros((S, C))
+    keep = idx < S
+    np.add.at(ref, idx[keep], ct[keep])
+    np.testing.assert_allclose(t_grad.numpy(), ref, rtol=0, atol=1e-5)
