@@ -1,5 +1,6 @@
-"""On-card smoke test of gsavatar_torch's avatar render path and training
-step.
+"""On-card smoke test of gsavatar_torch: the avatar render path, the
+training step, the full training run with evaluation, and the narrow-row
+probe.
 
     python3 chip_smoke.py
 
@@ -30,7 +31,20 @@ them. Phases, any failure ends the run with a non-zero exit:
    times, plain times, bounds and, for K3, the time of `index_add_`;
 8. training reference: one small training step on the card and on the CPU
    with the same state, camera and draws, loss terms and gradients held to
-   bench.py's gates.
+   bench.py's gates;
+9. training run: `train.training` at the same shape for 40 iterations
+   (densify at 10, 20 and 30, the opacity reset at 30, validation
+   at 20 and 40 on 2 frames a split, checkpoints at 20 and 40,
+   `strict_overflow` on), then a run resumed from the iteration-20
+   checkpoint for 5 iterations, then `evaluate.predict` on the final
+   checkpoint; each driven with the launch counts set to 0 just before and
+   read just after, with the densify counts, the densify, neighbour-refresh,
+   step and validation times, and checks of the alive prefix, finiteness,
+   the overflow counters and the resumed state;
+10. K4, the narrow-row probe: its entry point (`tools.profile_narrow_dma.
+   main`) with the launch count set to 0 just before and read just after,
+   then the kernel against its plain version at P = 2^21 with its time,
+   the plain version's, `torch.sum`'s and the bound.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
@@ -38,7 +52,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -87,6 +104,24 @@ K3_PER_STEP = 6
 LOSS_RTOL = 1e-4
 GRAD_COS = 0.999
 GRAD_REL = 1e-3
+# phase 9: the training run at the bench shape: densify at 10, 20 and 30,
+# the opacity reset at 30, validation at 20 and 40, a checkpoint at 20. The
+# densify window closes at 40: a densify there would prune every Gaussian,
+# since 10 Adam steps cannot lift an opacity the reset clamped to 0.01 back
+# over the 0.05 prune threshold (a logit step of at most opacity_lr each)
+DRIVER_ITERATIONS = 40
+DRIVER_OVERRIDES = (
+    f"opt.iterations={DRIVER_ITERATIONS}", "model.gaussian.delay=0",
+    "opt.densify_from_iter=5", "opt.densification_interval=10",
+    f"opt.densify_until_iter={DRIVER_ITERATIONS}",
+    "opt.opacity_reset_interval=30", "test_interval=20", "max_val_frames=2",
+    "checkpoint_iterations=[20]", "strict_overflow=true")
+DENSIFY_ROUNDS = 3
+RESUME_FROM = 20
+RESUME_ITERATIONS = 5
+# K4 against its plain version: the 1024 rows of a block added in another
+# order, within 1e-5 of the block's sum of |x|
+K4_TOL = 1e-5
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -633,6 +668,304 @@ def train_phases():
     return records
 
 
+def _state_tensors(state):
+    """Every tensor of a TrainState and its scalars, by name."""
+    out = {}
+    for part in ('gauss_params', 'gauss_aux'):
+        for k, v in vars(getattr(state, part)).items():
+            out[f'{part}.{k}'] = v
+    for which in ('m', 'v'):
+        for k, v in vars(getattr(state.gauss_adam, which)).items():
+            out[f'adam.{which}.{k}'] = v
+    out.update({f'conv.{k}': v.detach() for k, v in state.conv_params.items()})
+    out.update({f'mu.{k}': v for k, v in state.conv_opt.mu.items()})
+    out.update({f'nu.{k}': v for k, v in state.conv_opt.nu.items()})
+    out['generator'] = state.generator.get_state()
+    out['step'] = torch.tensor(state.gauss_adam.step)
+    out['count'] = torch.tensor(state.conv_opt.count)
+    return out
+
+
+class DriverProbe:
+    """Wrappers around the driver's module-level functions that time each
+    call on the host clock, ended by a device sync, and check what each
+    leaves behind: the step, densify, the neighbour refresh, validation
+    and the checkpoint save. Installed for one run, then removed."""
+
+    NAMES = ('make_train_step', 'densify_step', 'refresh_knn',
+             'make_validation')
+
+    def __init__(self):
+        self.step_ms, self.densify, self.knn_ms = [], [], []
+        self.val = []
+        self.saved = {}
+
+    def install(self, train_mod, scene):
+        self.mod, self.scene = train_mod, scene
+        self.orig = {n: getattr(train_mod, n) for n in self.NAMES}
+        orig, probe = self.orig, self
+
+        def sync_ms(t0):
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1000.0
+
+        def make_train_step(scene):
+            step = orig['make_train_step'](scene)
+
+            def timed_step(state, *a, **k):
+                t0 = time.perf_counter()
+                out = step(state, *a, **k)
+                probe.step_ms.append(sync_ms(t0))
+                return out
+            return timed_step
+
+        def densify_step(scene, state, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, info = orig['densify_step'](scene, state, *a)
+            ms = sync_ms(t0)
+            info_h = {k: int(v) for k, v in info.items()}
+            alive = state.gauss_aux.alive
+            n = info_h['n_alive']
+            if not (bool(alive[:n].all()) and not bool(alive[n:].any())):
+                fail(f"densify broke the alive prefix ({n} alive)")
+            probe.densify.append(dict(info_h, ms=ms,
+                                      step=len(probe.step_ms)))
+            return state, info
+
+        def refresh_knn(state, bucket):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig['refresh_knn'](state, bucket)
+            probe.knn_ms.append((bucket, sync_ms(t0)))
+            return out
+
+        def make_validation(scene):
+            validation = orig['make_validation'](scene)
+
+            def timed(state, iteration, *a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = validation(state, iteration, *a, **k)
+                probe.val.append((iteration, sync_ms(t0), res))
+                return res
+            return timed
+
+        for n, fn in (('make_train_step', make_train_step),
+                      ('densify_step', densify_step),
+                      ('refresh_knn', refresh_knn),
+                      ('make_validation', make_validation)):
+            setattr(train_mod, n, fn)
+        save = scene.save_checkpoint
+
+        def save_checkpoint(state, iteration, save_dir):
+            probe.saved[iteration] = {k: v.detach().clone() for k, v in
+                                      _state_tensors(state).items()}
+            return save(state, iteration, save_dir)
+        scene.save_checkpoint = save_checkpoint
+
+    def remove(self):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+        del self.scene.save_checkpoint
+
+
+def driver_scene(cfg):
+    """A training Scene whose cameras have rendered their ground truth
+    already (K1 renders it), so that a run's K1 count is its own."""
+    from gsavatar_torch.scene import Scene
+    scene = Scene(cfg, seed=max(int(cfg.get('seed', -1)), 0), device=DEVICE)
+    for ds in (scene.train_dataset, scene.test_dataset):
+        for i in range(len(ds)):
+            ds[i]
+    torch.cuda.synchronize()
+    return scene
+
+
+def driven(counters, fn):
+    """Run fn() with every kernel's launch count set to 0 just before and
+    read just after; returns (fn's result, the counts)."""
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters.items()}
+
+
+def check_finite_records(logger, label):
+    for r in logger.history:
+        for k, v in r.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                fail(f"{label}: non-finite {k} at step {r['step']}")
+            if k in ('overflow/pairs', 'overflow/rect') and v:
+                fail(f"{label}: {k} {v} at step {r['step']}")
+
+
+def driver_phase(counters, work):
+    """Phase 9: the training run, its files under `work`."""
+    from gsavatar_torch import train
+    from gsavatar_torch.config import BENCH_OVERRIDES, load_config
+    cfg = load_config(list(BENCH_OVERRIDES) + list(DRIVER_OVERRIDES)
+                      + [f"exp_dir={os.path.join(work, 'run')}"])
+    t0 = time.perf_counter()
+    scene = driver_scene(cfg)
+    log(f"driver set-up: {time.perf_counter() - t0:.1f} s")
+    probe = DriverProbe()
+    probe.install(train, scene)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (scene, state, logger), launches = driven(
+            counters, lambda: train.training(cfg, scene=scene, log_every=1,
+                                             progress=False))
+    finally:
+        probe.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_finite_records(logger, 'training run')
+    # the frames of one validation: the test split and every (len/10)-th
+    # training frame, each capped at max_val_frames
+    cap = int(cfg['max_val_frames'])
+    n_train = len(scene.train_dataset)
+    frames = min(len(scene.test_dataset), cap) + min(
+        len(range(0, n_train, max(n_train // 10, 1))), cap)
+    if [it for it, _, _ in probe.val] != [20, 40]:
+        fail(f"validations at {[it for it, _, _ in probe.val]}")
+    val_frames = frames * len(probe.val)
+    for it, ms, res in probe.val:
+        log(f"validation at {it}: {frames} frames, {ms / frames:.3f} ms per "
+            f"frame (host clock, synced), " + ", ".join(
+                f"{k} {v:.6g}" for k, v in sorted(res.items())
+                if not isinstance(v, list)))
+        log(f"validation at {it}: opacity histogram "
+            f"{res['val/opacity_histogram']}")
+    for d, (bucket, knn_ms) in zip(probe.densify, probe.knn_ms):
+        log(f"densify after step {d['step']}: cloned {d['n_cloned']}, split "
+            f"{d['n_split']}, pruned {d['n_pruned']}, dropped "
+            f"{d['n_dropped']}, alive {d['n_alive']}; {d['ms']:.3f} ms; "
+            f"refresh_knn over {bucket} rows {knn_ms:.3f} ms")
+    grown = sum(d['n_cloned'] + d['n_split'] for d in probe.densify)
+    if len(probe.densify) != DENSIFY_ROUNDS or not grown:
+        fail(f"{len(probe.densify)} densify rounds, {grown} Gaussians added")
+    steps = probe.step_ms
+    before = sorted(steps[1:10])
+    after = sorted(steps[30:40])
+    log(f"driver steps: {len(steps)}, median {before[len(before) // 2]:.3f} "
+        f"ms over steps 2-10 (before any densify), median "
+        f"{after[len(after) // 2]:.3f} ms over "
+        f"steps 31-40 ({probe.densify[-1]['n_alive']} alive after the last "
+        f"densify); first {steps[0]:.1f} ms; peak device memory {peak:.3f} "
+        f"GiB")
+    want = {'composite_fwd': DRIVER_ITERATIONS + val_frames,
+            'composite_bwd': DRIVER_ITERATIONS,
+            'segsum': K3_PER_STEP * DRIVER_ITERATIONS, 'narrow_rows': 0}
+    log(f"driver launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"training run launches {launches}, expected {want}")
+    final = _state_tensors(state)
+    if not all(bool(v.isfinite().all()) for k, v in final.items()
+               if v.is_floating_point()):
+        fail("non-finite state after the training run")
+    ckpt = os.path.join(work, 'run', f'ckpt{RESUME_FROM}.pt')
+    if RESUME_FROM not in probe.saved or not os.path.exists(ckpt):
+        fail(f"no checkpoint at {RESUME_FROM}")
+    return cfg, probe
+
+
+def resume_and_predict(cfg, work, probe, counters):
+    """Phase 9, continued: load the iteration-20 checkpoint (bit for bit
+    the saved state), resume from it, and predict from the final one."""
+    from gsavatar_torch import train
+    from gsavatar_torch.data.synthetic import SyntheticDataset
+    from gsavatar_torch.evaluate import predict
+    ckpt = os.path.join(work, 'run', f'ckpt{RESUME_FROM}.pt')
+    rcfg = dict(cfg, start_checkpoint=ckpt,
+                exp_dir=os.path.join(work, 'resume'))
+    scene = driver_scene(rcfg)
+    loaded, it = scene.load_checkpoint(ckpt)
+    got = _state_tensors(loaded)
+    saved = probe.saved[RESUME_FROM]
+    bad = [k for k in saved if not torch.equal(got[k].cpu(), saved[k].cpu())]
+    if it != RESUME_FROM or bad or set(got) != set(saved):
+        fail(f"checkpoint {ckpt} loads back different: iteration {it}, "
+             f"{bad[:5]}")
+    log(f"checkpoint {RESUME_FROM}: {len(saved)} tensors load back bit for "
+        f"bit")
+    (scene, state, logger), launches = driven(
+        counters, lambda: train.training(
+            rcfg, scene=scene, log_every=1, progress=False,
+            max_iterations=RESUME_FROM + RESUME_ITERATIONS))
+    check_finite_records(logger, 'resumed run')
+    steps = [r['step'] for r in logger.history if 'loss/total_loss' in r]
+    want = {'composite_fwd': RESUME_ITERATIONS,
+            'composite_bwd': RESUME_ITERATIONS,
+            'segsum': K3_PER_STEP * RESUME_ITERATIONS, 'narrow_rows': 0}
+    log(f"resumed run: steps {steps}, launches {launches}")
+    if steps != list(range(RESUME_FROM + 1,
+                           RESUME_FROM + RESUME_ITERATIONS + 1)) \
+            or launches != want:
+        fail(f"resumed run: steps {steps}, launches {launches}, "
+             f"expected {want}")
+
+    pcfg = dict(cfg, mode='test', exp_dir=os.path.join(work, 'run'),
+                load_ckpt=os.path.join(work, 'run',
+                                       f'ckpt{DRIVER_ITERATIONS}.pt'))
+    res, launches = driven(counters, lambda: predict(pcfg))
+    n_test = len(SyntheticDataset(pcfg['dataset'], 'test'))
+    log(f"predict on ckpt{DRIVER_ITERATIONS}: {n_test} test frames, {res}, "
+        f"launches {launches}")
+    results = os.path.join(work, 'run', 'eval_view', 'results.npz')
+    if not os.path.exists(results) or not all(
+            math.isfinite(v) for v in res.values()):
+        fail(f"predict: {res}")
+    # each test camera: its ground truth (K1) and its render (K1)
+    want = {'composite_fwd': 2 * n_test, 'composite_bwd': 0, 'segsum': 0,
+            'narrow_rows': 0}
+    if launches != want:
+        fail(f"predict launches {launches}, expected {want}")
+
+
+def k4_phase(counters):
+    """Phase 10: the probe's entry point, then K4 against its plain version
+    at P = 2^21."""
+    from gsavatar_torch.tools import profile_narrow_dma as K4
+    _, launches = driven(counters, K4.main)
+    log(f"probe launches {launches}")
+    if launches['narrow_rows'] != 21 or any(
+            n for k, n in launches.items() if k != 'narrow_rows'):
+        fail(f"probe launches {launches}, expected 21 of narrow_rows")
+    x = torch.randn((K4.P, K4.COLS), device=DEVICE,
+                    generator=torch.Generator(DEVICE).manual_seed(SEED))
+    got = K4.run(x)
+    want = K4.run_plain(x)
+    mag = x.abs().view(-1, K4.BLOCK, K4.COLS).sum(1)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    max_err = float(err.max())
+    n_off = int((err > K4_TOL * mag).sum())
+    log(f"K4 vs plain at P {K4.P}: max abs err {max_err:.3e}, worst err / "
+        f"sum|x| {float((err / mag).max()):.3e}, {n_off} values off "
+        f"(tolerance {K4_TOL:g} of the block's sum of |x|)")
+    if n_off:
+        fail("K4 disagrees with its plain version")
+    ms = timed(lambda: K4.run(x), 200)
+    plain_ms = timed(lambda: K4.run_plain(x), 5)
+    lib_ms = timed(lambda: x.view(-1, K4.BLOCK, K4.COLS).sum(1), 200)
+    nbytes = K4.moved_bytes(K4.P)
+    b_ms, b_by, t_bytes, t_ops = bound(nbytes, K4.P * K4.COLS)
+    log(f"K4 {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+        f"{nbytes / ms * 1e3 / PEAK_BYTES:.3f} of 3.35 TB/s), plain "
+        f"{plain_ms:.3f} ms, torch.sum {lib_ms:.4f} ms "
+        f"({nbytes / lib_ms / 1e6:.1f} GB/s), bound {b_ms:.4f} ms (bytes "
+        f"{t_bytes:.4f}, operations {t_ops:.5f})")
+    return {
+        'name': 'narrow_rows', 'route': 'cuda',
+        'source': 'gsavatar_torch/csrc/narrow_rows.cu',
+        'replaces': 'tools/profile_narrow_dma.py:25',
+        'launches': launches['narrow_rows'], 'max_abs_err': max_err,
+        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+        'library_ms': lib_ms,
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
@@ -719,6 +1052,26 @@ def main():
 
     # 6-8. the training path, its kernels, and its reference
     records += train_phases()
+
+    # 9. the training run, a resume, predict; 10. the probe
+    from gsavatar_torch.ops import segsum_blocked
+    from gsavatar_torch.tools import profile_narrow_dma
+    counters = {'composite_fwd': composite.composite_pairs_fwd,
+                'composite_bwd': composite.composite_pairs_bwd,
+                'segsum': segsum_blocked.segment_sum_sorted_blocked,
+                'narrow_rows': profile_narrow_dma.run}
+    if profile_narrow_dma.run.launches:
+        fail("K4 launched on the render or training path")
+    # the runs' checkpoints (about 90 MB each) go under build/, which the
+    # repository ignores, and are removed at the end
+    kernels.BUILD.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix='run-', dir=kernels.BUILD)
+    try:
+        cfg, probe = driver_phase(counters, work)
+        resume_and_predict(cfg, work, probe, counters)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    records.append(k4_phase(counters))
 
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,14 +1,18 @@
 """The port's configuration as a plain Python dict.
 
-Counterpart of `gsavatar/config/config.py` for what the render path and
-the training step read:
+Counterpart of `gsavatar/config/config.py` for what the render path, the
+training driver and the evaluation read:
 the defaults of `configs/config.yaml` composed with its default groups
 (`pose_correction/direct`, `texture/shallow_mlp`, `rigid/skinning_field`,
 `non_rigid/hashgrid`, `option/iter15k`) and `dataset/synthetic.yaml`, with
 the `${...}` interpolations resolved. Written out as a dict so that the port
 needs no YAML parser. `load_config(["a.b.c=value", ...])` applies dotted
 overrides; values are read as Python literals (`[540,540]`, `['0']`, `0.1`)
-or the words `true`/`false`/`null`."""
+or the words `true`/`false`/`null`. A config group (`dataset=synthetic`)
+may name only the group's default: the port has no other yet. Keys that
+the JAX package reads with a default in its code rather than from its yaml
+(`opt.bucket_granularity`, `log_every`, `max_val_frames`,
+`strict_overflow`) are here at that default."""
 from __future__ import annotations
 
 import ast
@@ -91,6 +95,7 @@ DEFAULTS = {
     },
     'dataset': {
         'name': 'synthetic',
+        'test_mode': 'view',
         'train_smpl': True,
         'padding': 0.1,
         'white_background': False,
@@ -143,12 +148,35 @@ DEFAULTS = {
         'opacity_reset_interval': 3000,
         'densify_from_iter': 500,
         'densify_until_iter': 10000,
+        'densify_grad_threshold': 0.0002,
+        'opacity_threshold': 0.05,
+        'percent_dense': 0.01,
+        'bucket_granularity': 4096,
         'n_reg_pts': 1024,
         'skinning_pool_size': 65536,
     },
     'pipeline': {'pose_noise': 0.1},
     'rasterizer': {'max_pairs': 2097152, 'max_rect': 8},
+    'parallel': {'data': 0, 'model': 0},
+    'name': 'synthetic-direct-mlp_field-ingp-shallow_mlp-default',
+    'seed': -1,
+    'mode': 'train',
+    'exp_dir': None,
+    'log_every': 10,
+    'test_interval': 1000,
+    'test_iterations': [],
+    'save_iterations': [30000],
+    'checkpoint_iterations': [],
+    'max_val_frames': None,
+    'strict_overflow': False,
+    'start_checkpoint': None,
+    'load_ckpt': None,
 }
+
+# config groups and the only choice the port has for each
+GROUPS = {'dataset': 'synthetic', 'pose_correction': 'direct',
+          'texture': 'shallow_mlp', 'rigid': 'skinning_field',
+          'non_rigid': 'hashgrid', 'option': 'iter15k'}
 
 # the bench shape of the JAX package (bench.py:248-258): the synthetic
 # avatar at 540x540 with 50,000 Gaussians in an arena of 131072, a hidden
@@ -185,6 +213,11 @@ def load_config(overrides: Optional[Iterable[str]] = None) -> dict:
         if '=' not in ov:
             raise ValueError(f"override must be key=value: {ov}")
         key, value = ov.split('=', 1)
+        if key in GROUPS:
+            if value != GROUPS[key]:
+                raise NotImplementedError(
+                    f"{key}={value}: the port has only {key}={GROUPS[key]}")
+            continue
         node = cfg
         parts = key.split('.')
         for p in parts[:-1]:

@@ -5,7 +5,8 @@ correction, eps = 1e-15 added after the square root) on the six arena
 fields, masked to the alive slots, with one `step` shared by all fields
 that advances only when `apply` is true (the Gaussians wait for
 `model.gaussian.delay`). A plain tensor function rather than a
-`torch.optim` optimizer: the alive mask and the shared step do not fit one."""
+`torch.optim` optimizer: the alive mask and the shared step do not fit one.
+`zero_moments` is the moment surgery of densify and the opacity reset."""
 from __future__ import annotations
 
 import dataclasses
@@ -54,3 +55,15 @@ def adam_step(params: GaussianParams, grads: GaussianParams,
         new[field] = (p - do * lrs[field] * update, m_new, v_new)
     pick = lambda i: GaussianParams(**{f: new[f][i] for f in FIELDS})
     return pick(0), ArenaAdamState(m=pick(1), v=pick(2), step=step)
+
+
+def zero_moments(state: ArenaAdamState, slot_mask, fields=FIELDS
+                 ) -> ArenaAdamState:
+    """Zero the Adam moments of the slots in `slot_mask` (N,) bool, for the
+    given fields (default all six); the step stays."""
+    def z(tree):
+        return tree.replace(**{
+            f: torch.where(slot_mask.reshape((-1,) + (1,) * (
+                getattr(tree, f).ndim - 1)), 0.0, getattr(tree, f))
+            for f in fields})
+    return ArenaAdamState(m=z(state.m), v=z(state.v), step=state.step)

@@ -2,11 +2,13 @@
 
 Counterpart of `gsavatar/inference.py:InferenceScene`. The scene is built
 from a state (the Gaussian arena and the converter's parameters) and the
-subject's metadata, instead of an orbax checkpoint: checkpoints come with
-the scene/checkpoint slice. `init_state` makes a state from the port's own
-seeded initialisation (arena from the dataset's point cloud, converter
-weights from a torch.Generator seeded through numpy); `synthetic_scene`
-puts the two together for the synthetic avatar."""
+subject's metadata, or with `InferenceScene.from_checkpoint` from a
+checkpoint of the port's training (`scene.py:Scene.save_checkpoint`),
+which it renders at the checkpoint's iteration and SH degree. `init_state`
+makes a state from the port's own seeded initialisation (arena from the
+dataset's point cloud, converter weights from a torch.Generator seeded
+through numpy); `synthetic_scene` puts the two together for the synthetic
+avatar."""
 from __future__ import annotations
 
 import dataclasses
@@ -63,12 +65,20 @@ def raster_config_from(cfg: dict) -> RasterizeConfig:
 
 class InferenceScene:
     def __init__(self, cfg: dict, metadata: dict, assets, state: AvatarState,
-                 device=None):
+                 device=None, iteration: Optional[int] = None):
+        """Renders at `iteration` (default the config's last training
+        iteration) with the SH degree of that iteration; without one, at
+        the full degree."""
         self.cfg = cfg
         self.device = resolve_device(device)
         gcfg = cfg['model']['gaussian']
         self.use_sh = bool(gcfg['use_sh'])
         self.max_sh_degree = int(gcfg['sh_degree'])
+        self.iteration = iteration if iteration is not None \
+            else int(cfg['opt']['iterations'])
+        self.active_sh_degree = (
+            0 if not self.use_sh else self.max_sh_degree if iteration is None
+            else min(iteration // 1000, self.max_sh_degree))
         self.raster_config = raster_config_from(cfg)
         white = cfg['dataset'].get('white_background', False)
         self.background = torch.full((3,), 1.0 if white else 0.0,
@@ -85,10 +95,25 @@ class InferenceScene:
         self.bucket = n_alive if bool(alive[:n_alive].all()) else 0
         self._nr_cache = None
 
+    @classmethod
+    def from_checkpoint(cls, cfg: dict, path: str, device=None
+                        ) -> "InferenceScene":
+        """The avatar of a training checkpoint, with the metadata of the
+        config's synthetic subject."""
+        from gsavatar_torch.scene import read_checkpoint
+        dev = resolve_device(device)
+        ckpt = read_checkpoint(path, dev)
+        train = SyntheticDataset(cfg['dataset'], 'train')
+        state = AvatarState(G.GaussianParams(**ckpt['gauss_params']),
+                            G.GaussianAux(**ckpt['gauss_aux']),
+                            ckpt['converter'])
+        return cls(cfg, train.metadata, train.assets, state, device=dev,
+                   iteration=int(ckpt['iteration']))
+
     def view(self) -> G.Gaussians:
         return G.make_view(
             self.gauss_params, self.gauss_aux,
-            active_sh_degree=self.max_sh_degree if self.use_sh else 0,
+            active_sh_degree=self.active_sh_degree,
             max_sh_degree=self.max_sh_degree, use_sh=self.use_sh,
             bucket=self.bucket)
 
@@ -96,9 +121,8 @@ class InferenceScene:
     def render_frame(self, camera, iteration: Optional[int] = None
                      ) -> RenderPackage:
         """Render one camera (its tensors on this scene's device) at
-        `iteration`, by default the config's last training iteration."""
-        it = iteration if iteration is not None \
-            else int(self.cfg['opt']['iterations'])
+        `iteration`, by default the scene's."""
+        it = iteration if iteration is not None else self.iteration
         gview = self.view()
         if self._nr_cache is None:
             # canonical positions are frozen at inference: encode once

@@ -1,6 +1,6 @@
 """Brute-force nearest neighbours, chunked over the queries.
 
-Counterpart of `gsavatar/ops/knn.py:mean_dist3` and `knn_self`:
+Counterpart of `gsavatar/ops/knn.py:mean_dist3`, `knn_self` and `nn_index`:
 ||x - y||^2 = ||x||^2 + ||y||^2 - 2 x.y with the cross term as one matrix
 product per chunk of queries, which bounds the (chunk, M) distance matrix.
 Ties between equal distances may order neighbours differently from the JAX
@@ -21,6 +21,18 @@ def mean_dist3(points, chunk: int = 1024):
         near = torch.topk(d, 4, dim=1, largest=False).values[:, 1:4]
         out.append(near.clamp_min(0.0).mean(dim=1))
     return torch.cat(out)
+
+
+def nn_index(query, points, chunk: int = 1024):
+    """Index (N,) int32 of the nearest of `points` (M, 3) to each query
+    (N, 3); the first of equal distances."""
+    p_sq = (points * points).sum(-1)
+    out = []
+    for s in range(0, query.shape[0], chunk):
+        q = query[s:s + chunk]
+        d = (q * q).sum(-1)[:, None] + p_sq[None, :] - 2.0 * (q @ points.T)
+        out.append(torch.argmin(d, dim=1))
+    return torch.cat(out).to(torch.int32)
 
 
 def knn_self(x, k: int, chunk: int = 1024, mask=None):

@@ -10,7 +10,9 @@ both directions (the JAX package leaves them to XLA).
 
 Weights: the exported .npz bundle at `weights/lpips_vgg.npz` under the
 repository root when it exists, else the deterministic random backbone of
-`random_weights` (numpy-seeded, so both packages build the same arrays)."""
+`random_weights` (numpy-seeded, so both packages build the same arrays).
+`metric_key` names the metric by that source, as the JAX package does:
+'lpips' for the exported bundle, 'lpips_rand' for the random backbone."""
 from __future__ import annotations
 
 import functools
@@ -68,6 +70,15 @@ def _device_weights(device: str) -> Dict[str, torch.Tensor]:
             for k, v in w.items()}
 
 
+def weights_kind() -> str:
+    """'exported' with the bundle, 'random' without."""
+    return 'exported' if _BUNDLE.exists() else 'random'
+
+
+def metric_key() -> str:
+    return 'lpips' if weights_kind() == 'exported' else 'lpips_rand'
+
+
 def get_weights(device) -> Dict[str, torch.Tensor]:
     return _device_weights(str(torch.device(device)))
 
@@ -89,6 +100,10 @@ def _features(x, wts):
 
 def lpips(img1, img2, weights=None, normalize: bool = True):
     """img (H, W, 3) in [0, 1] (normalize=True) or [-1, 1] -> scalar."""
+    if min(img1.shape[0], img1.shape[1]) < 2 ** (len(VGG) - 1):
+        # four 2x2 pools leave the last stage an empty map, whose mean the
+        # JAX package reports as NaN (torch's pool raises instead)
+        return torch.full((), float('nan'), device=img1.device)
     wts = weights if weights is not None else get_weights(img1.device)
     shift = torch.as_tensor(_SHIFT, device=img1.device).reshape(1, 3, 1, 1)
     scale = torch.as_tensor(_SCALE, device=img1.device).reshape(1, 3, 1, 1)

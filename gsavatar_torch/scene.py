@@ -1,18 +1,27 @@
 """Training scene: datasets, converter, rasterizer config, optimizers, state.
 
-Counterpart of the training side of `gsavatar/scene.py` (`Scene`,
-`TrainState`, `converter_optimizer`). The Scene owns what is fixed for a
-run (datasets with their ground truth, the converter module, the raster
-config, the background, the skinning pool, the schedules); `init_state`
-makes the `TrainState` that `train.make_train_step` advances.
+Counterpart of `gsavatar/scene.py` (`Scene`, `TrainState`,
+`converter_optimizer`, `save_checkpoint`, `load_checkpoint`). The Scene
+owns what is fixed for a run (datasets with their ground truth, the
+converter module, the raster config, the background, the skinning pool,
+the schedules); `init_state` makes the `TrainState` that
+`train.make_train_step` advances.
 
 The converter's parameters live in the converter module: `TrainState.
 conv_params` is the module's own named parameters, and the step updates
-them, the arena and the optimizer states in place."""
+them, the arena and the optimizer states in place.
+
+A checkpoint is one `torch.save` file, `<dir>/ckpt<iteration>.pt`, of the
+whole state: the arena, its aux, the arena Adam with its step, the
+converter's state dict, the converter optimizer's state, the draws'
+generator state and the iteration. Loading gives the state back bit for
+bit; a file without one of those fields raises (the JAX package's lenient
+restore exists for older orbax layouts, which the port never wrote)."""
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict
 
 import torch
@@ -25,6 +34,10 @@ from gsavatar_torch.inference import raster_config_from, torch_generator
 from gsavatar_torch.models.converter import build_converter
 from gsavatar_torch.ops.sampling import sample_skinning_pool
 from gsavatar_torch.utils.transforms import expon_lr_schedule
+
+
+# the test dataset of each mode
+TEST_SPLIT = {'train': 'val', 'test': 'test', 'predict': 'predict'}
 
 
 def param_group(name: str) -> str:
@@ -123,9 +136,10 @@ class Scene:
     def __init__(self, cfg: dict, seed: int = 0, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        split = TEST_SPLIT[cfg.get('mode', 'train')]
         self.train_dataset = SyntheticDataset(cfg['dataset'], 'train',
                                               gt_device=self.device)
-        self.test_dataset = SyntheticDataset(cfg['dataset'], 'val',
+        self.test_dataset = SyntheticDataset(cfg['dataset'], split,
                                              gt_device=self.device)
         self.metadata = md = self.train_dataset.metadata
         self.cameras_extent = float(md['cameras_extent'])
@@ -178,6 +192,12 @@ class Scene:
             conv_opt=self.conv_tx.init(conv_params),
             generator=torch_generator(self._seed + 1))
 
+    def device_camera(self, idx: int, split: str = 'train'):
+        """Camera `idx` of the training ('train') or test split, on the
+        scene's device with its ground truth (cached by the dataset)."""
+        ds = self.train_dataset if split == 'train' else self.test_dataset
+        return ds[idx]
+
     def bucket_for(self, n_alive: int) -> int:
         """The alive-prefix bucket: n_alive rounded up to
         opt.bucket_granularity (0: the whole capacity)."""
@@ -204,3 +224,60 @@ class Scene:
         if not self.use_sh:
             return 0
         return min(iteration // 1000, self.max_sh_degree)
+
+    def save_checkpoint(self, state: TrainState, iteration: int,
+                        save_dir: str) -> str:
+        path = os.path.abspath(os.path.join(save_dir,
+                                            f"ckpt{iteration}.pt"))
+        os.makedirs(save_dir, exist_ok=True)
+        fields = lambda p: {f.name: getattr(p, f.name)
+                            for f in dataclasses.fields(p)}
+        torch.save({
+            'gauss_params': fields(state.gauss_params),
+            'gauss_aux': fields(state.gauss_aux),
+            'gauss_adam': {'m': fields(state.gauss_adam.m),
+                           'v': fields(state.gauss_adam.v),
+                           'step': state.gauss_adam.step},
+            'converter': self.converter.state_dict(),
+            'conv_opt': {'mu': state.conv_opt.mu, 'nu': state.conv_opt.nu,
+                         'count': state.conv_opt.count},
+            'generator': state.generator.get_state(),
+            'iteration': iteration,
+        }, path)
+        return path
+
+    def load_checkpoint(self, path: str):
+        """(TrainState, iteration) from `path`; loads the converter's
+        weights into `self.converter`."""
+        ckpt = read_checkpoint(path, self.device)
+        self.converter.load_state_dict(ckpt['converter'])
+        adam = ckpt['gauss_adam']
+        conv_opt = ckpt['conv_opt']
+        generator = torch.Generator()
+        generator.set_state(ckpt['generator'])
+        state = TrainState(
+            gauss_params=G.GaussianParams(**ckpt['gauss_params']),
+            gauss_aux=G.GaussianAux(**ckpt['gauss_aux']),
+            gauss_adam=ArenaAdamState(m=G.GaussianParams(**adam['m']),
+                                      v=G.GaussianParams(**adam['v']),
+                                      step=int(adam['step'])),
+            conv_params=dict(self.converter.named_parameters()),
+            conv_opt=ConverterOptState(mu=conv_opt['mu'], nu=conv_opt['nu'],
+                                       count=int(conv_opt['count'])),
+            generator=generator)
+        return state, int(ckpt['iteration'])
+
+
+CHECKPOINT_FIELDS = ('gauss_params', 'gauss_aux', 'gauss_adam', 'converter',
+                     'conv_opt', 'generator', 'iteration')
+
+
+def read_checkpoint(path: str, device) -> dict:
+    """The fields of a checkpoint file, tensors on `device` (the generator
+    state stays on the CPU). A missing field raises."""
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    missing = [k for k in CHECKPOINT_FIELDS if k not in ckpt]
+    if missing:
+        raise ValueError(f"checkpoint {path} lacks {missing}")
+    ckpt['generator'] = ckpt['generator'].cpu()
+    return ckpt

@@ -1,7 +1,9 @@
-"""One training iteration of the avatar.
+"""Training: one iteration of the avatar, densify, validation and the driver.
 
 Counterpart of `gsavatar/train.py`: `loss_weights`, `schedule_flags`,
-`make_loss_fn`, `make_step_core` and `make_train_step`. One step renders
+`make_loss_fn`, `make_step_core`, `make_train_step`, `make_densify_step`
+(here `densify_step`, `opacity_reset_step`, `refresh_knn`),
+`make_validation`, `training` and `main`. One step renders
 the camera at `train=True`, assembles every loss term (L1, D-SSIM, mask,
 skinning, AIAP, opacity, LPIPS on the foreground crop, the model
 regularizers), runs the backward pass (through K2 and K3 on the card),
@@ -13,22 +15,47 @@ the rasterizer's `max_pairs` / `max_rect`.
 torch cannot replay `jax.random`, so the step's random draws are explicit
 (`TrainDraws`): the pose-noise gate and noise, the view-noise angles and
 the skinning minibatch. A step given `draws=None` draws them from the
-state's generator."""
+state's generator through `draw`; a densify round draws its split noise
+through `densify_draws`. The frames are picked as the JAX driver picks
+them, popping without replacement through `np.random.default_rng(seed)`,
+so both packages visit the same frames.
+
+The driver (`training`) runs the JAX driver's single-chip route in its
+order: pick the frame, the schedule, the step, validation when due (before
+densify and the reset), densify and prune then `refresh_knn` over the new
+alive-prefix bucket, the opacity reset, the log and the overflow alarm,
+the PLY and the checkpoint. The JAX driver also right-sizes its pair
+arena and tile window from the observed workload (its pair/rect ladder),
+because XLA compiles one step per static shape. The port's pair arrays
+are sized by their count, so it runs at the config's `max_pairs` /
+`max_rect` ceilings and keeps only the alarm: the pair overflow and
+`rect_dropped` counts are host integers in every step, so it checks them
+every iteration, and `strict_overflow` raises. The multi-subject and mesh
+routes (`parallel.subjects`, `parallel.data` with `parallel.model`) are
+not ported (ROADMAP item 14)."""
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from gsavatar_torch import losses as L
 from gsavatar_torch.core import gaussians as G
-from gsavatar_torch.core.densify import add_stats_prefix
+from gsavatar_torch.core.densify import (add_stats_prefix, densify_and_prune,
+                                         reset_opacity)
 from gsavatar_torch.core.optim import FIELDS, ArenaAdamState, adam_step
 from gsavatar_torch.ops import lpips as lpips_mod
+from gsavatar_torch.ops.knn import knn_self
 from gsavatar_torch.ops.ssim import ssim
 from gsavatar_torch.renderer import render
+from gsavatar_torch.scene import Scene
+from gsavatar_torch.utils import ply
+from gsavatar_torch.utils.logging import MetricLogger
 from gsavatar_torch.utils.transforms import draw_view_angles
 
 LOSS_WEIGHT_KEYS = ("lambda_l1", "lambda_dssim", "lambda_perceptual",
@@ -159,6 +186,9 @@ def make_loss_fn(scene):
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update({
             'overflow/pairs': pkg.pair_overflow,
+            # the pairs route has no per-tile capacity (nor has the JAX
+            # package's, which reports 0 under this key too)
+            'overflow/tile': 0,
             'overflow/rect': pkg.rect_dropped,
             'raster/n_pairs': pkg.n_pairs,
             'raster/max_rect_side': int(pkg.max_rect_side),
@@ -269,3 +299,287 @@ def make_step_core(scene):
 
 # the training step is `make_step_core` as it is: there is nothing to compile
 make_train_step = make_step_core
+
+
+def densify_draws(state, iteration: int):
+    """The split draws of a densify round at `iteration`: two (N, 3)
+    standard normals from the state's generator, on the arena's device.
+    (The iteration is what the JAX package seeds its draws with; a test
+    that replays them replaces this function.)"""
+    n = state.gauss_params.xyz.shape[0]
+    dev = state.gauss_params.xyz.device
+    return tuple(torch.randn((n, 3), generator=state.generator).to(dev)
+                 for _ in range(2))
+
+
+@torch.no_grad()
+def densify_step(scene, state, eps1, eps2, use_screen_size_prune: bool):
+    """Densify and prune the arena (`core/densify.py`) with the config's
+    thresholds; returns (state, info), info's counts still on the device."""
+    opt = scene.cfg['opt']
+    params, aux, adam, info = densify_and_prune(
+        state.gauss_params, state.gauss_aux, state.gauss_adam, eps1, eps2,
+        grad_threshold=float(opt['densify_grad_threshold']),
+        min_opacity=float(opt['opacity_threshold']),
+        extent=scene.cameras_extent,
+        percent_dense=float(opt['percent_dense']),
+        use_screen_size_prune=bool(use_screen_size_prune))
+    state.gauss_params, state.gauss_aux, state.gauss_adam = params, aux, adam
+    return state, info
+
+
+@torch.no_grad()
+def opacity_reset_step(state):
+    state.gauss_params, state.gauss_adam = reset_opacity(
+        state.gauss_params, state.gauss_adam, state.gauss_aux.alive)
+    return state
+
+
+@torch.no_grad()
+def refresh_knn(state, bucket: int):
+    """Recompute the cached AIAP neighbours over the alive prefix
+    `[:bucket]`, dead slots never a neighbour (after every densify and
+    every resume)."""
+    state.gauss_aux.nn_ix[:bucket] = knn_self(
+        state.gauss_params.xyz[:bucket], G.K_NEIGHBORS,
+        mask=state.gauss_aux.alive[:bucket])
+    return state
+
+
+def _host(metrics: dict) -> dict:
+    """Every value of `metrics` as a Python float, with one device read for
+    all its tensors."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    vals = dict(zip(keys, torch.stack([
+        metrics[k].detach().double().reshape(()) for k in keys]).tolist()
+        if keys else []))
+    return {k: vals[k] if k in vals else float(v)
+            for k, v in metrics.items()}
+
+
+def make_validation(scene):
+    """validation(state, iteration, logger, exp_dir=None,
+    max_val_frames=None, bucket=0) -> results: renders the test split and
+    every (len/10)-th training frame at eval, and reports per split the
+    means of l1, PSNR, SSIM and LPIPS (f32, keyed by its weight source),
+    the opacity histogram of the alive slots and their count. A frame
+    whose pairs overflow or whose rects are clamped raises the overflow
+    alarm as a training step does."""
+    key = lpips_mod.metric_key()
+
+    @torch.no_grad()
+    def render_and_score(state, camera, active_sh_degree: int = 0,
+                         bucket: int = 0):
+        gview = G.make_view(state.gauss_params, state.gauss_aux,
+                            active_sh_degree=active_sh_degree,
+                            max_sh_degree=scene.max_sh_degree,
+                            use_sh=scene.use_sh, bucket=bucket)
+        pkg = render(scene.converter, gview, camera, 10 ** 9,
+                     scene.raster_config, scene.background)
+        img = torch.clamp(pkg.render, 0.0, 1.0)
+        gt = torch.clamp(camera.image, 0.0, 1.0)
+        out = {'l1_loss': L.l1_loss(img, gt), 'psnr': L.psnr(img, gt),
+               'ssim': ssim(img, gt), key: lpips_mod.lpips(img, gt)}
+        return out, pkg
+
+    def validation(state, iteration: int, logger, exp_dir=None,
+                   max_val_frames=None, bucket: int = 0):
+        deg = scene.active_sh_degree(iteration)
+        n_train = len(scene.train_dataset)
+        splits = {'test': list(range(len(scene.test_dataset))),
+                  'train': list(range(0, n_train, max(n_train // 10, 1)))}
+        if max_val_frames:
+            splits = {k: v[:max_val_frames] for k, v in splits.items()}
+        results = {}
+        for name, idxs in splits.items():
+            acc: dict = {}
+            for i in idxs:
+                camera = scene.device_camera(
+                    i, 'train' if name == 'train' else 'test')
+                m, pkg = render_and_score(state, camera, deg, bucket)
+                _overflow_alarm(scene.cfg, iteration, pkg.pair_overflow,
+                                pkg.rect_dropped)
+                for k, v in _host(m).items():
+                    acc.setdefault(k, []).append(v)
+            for k, v in acc.items():
+                results[f'val/{name}_{k}'] = float(np.mean(v))
+        results['val/opacity_histogram'] = opacity_histogram(
+            state).tolist()
+        results['val/total_points'] = int(state.gauss_aux.alive.sum())
+        if logger is not None:
+            logger.log(iteration, results)
+        if 'val/test_psnr' in results:
+            print(f"\n[ITER {iteration}] Evaluating test: "
+                  f"PSNR {results['val/test_psnr']:.2f}", flush=True)
+        return results
+
+    return validation
+
+
+@torch.no_grad()
+def opacity_histogram(state):
+    """20 bins of the alive slots' opacities over [0, 1], the last bin
+    closed, as `jnp.histogram` bins them (f32 counts)."""
+    op = torch.sigmoid(state.gauss_params.opacity[:, 0])
+    x = torch.where(state.gauss_aux.alive, op, -1.0)
+    edges = torch.linspace(0.0, 1.0, 21, device=x.device)
+    idx = torch.searchsorted(edges, x, right=True)
+    idx = torch.where(x == edges[-1], 20, idx)
+    return torch.bincount(idx, minlength=22)[1:21].to(torch.float32)
+
+
+def _overflow_alarm(cfg, iteration: int, pairs: int, rect: int) -> bool:
+    """Print the JAX driver's warning when work was dropped; raise with
+    `strict_overflow`. True when it fired."""
+    if pairs + rect <= 0:
+        return False
+    msg = (f"[gsavatar_torch] WARNING iter {iteration}: rasterizer overflow "
+           f"(pairs={pairs}, rect={rect}) — splats are being "
+           f"DROPPED or cropped. Raise rasterizer.max_pairs / max_rect.")
+    print(msg, flush=True)
+    if bool(cfg.get('strict_overflow', False)):
+        raise RuntimeError(msg)
+    return True
+
+
+def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
+             progress: bool = True, device=None):
+    """The optimization loop; returns (scene, final state, logger). Runs on
+    the GPU unless `device` (or the given scene's) is the CPU."""
+    par = cfg.get('parallel') or {}
+    if par.get('subjects') or (int(par.get('data', 0) or 0) >= 1
+                               and int(par.get('model', 0) or 0) >= 1):
+        raise NotImplementedError(
+            "parallel.subjects and the parallel.data x parallel.model mesh "
+            "are not ported yet (ROADMAP item 14)")
+    seed = max(int(cfg.get('seed', -1)), 0)
+    scene = scene or Scene(cfg, seed=seed, device=device)
+    opt = cfg['opt']
+    iterations = int(max_iterations or opt['iterations'])
+
+    start_checkpoint = cfg.get('start_checkpoint')
+    if start_checkpoint:
+        state, first_iteration = scene.load_checkpoint(str(start_checkpoint))
+        first_iteration += 1
+        print(f"Resuming from {start_checkpoint} at iteration "
+              f"{first_iteration}")
+    else:
+        state = scene.init_state()
+        first_iteration = 1
+
+    exp_dir = cfg.get('exp_dir') or os.path.join('exp',
+                                                 str(cfg.get('name', 'run')))
+    os.makedirs(exp_dir, exist_ok=True)
+    logger = MetricLogger(os.path.join(exp_dir, 'metrics.jsonl'))
+    logger.log(0, {'lpips_weights': lpips_mod.weights_kind()})
+
+    step = make_train_step(scene)
+    validation = make_validation(scene)
+
+    alive = state.gauss_aux.alive.cpu()
+    n_alive = int(alive.sum())
+    # the bucket needs the alive prefix that densify's compaction makes
+    bucket = scene.bucket_for(n_alive) if bool(alive[:n_alive].all()) \
+        else scene.capacity
+    if start_checkpoint:
+        refresh_knn(state, bucket)
+
+    checkpoint_iterations = list(cfg.get('checkpoint_iterations') or [])
+    checkpoint_iterations.append(iterations)
+    save_iterations = list(cfg.get('save_iterations') or [])
+    test_interval = int(cfg.get('test_interval', 0) or 0)
+    test_iterations = set(cfg.get('test_iterations') or [])
+    max_val_frames = cfg.get('max_val_frames')
+    overflow_alarmed = False
+    flags = dict(densify_until=int(opt['densify_until_iter']),
+                 densify_from=int(opt['densify_from_iter']),
+                 densify_interval=int(opt['densification_interval']),
+                 opacity_reset_interval=int(opt['opacity_reset_interval']),
+                 gauss_delay=int(cfg['model']['gaussian'].get('delay', 0)),
+                 white_bg=bool(cfg['dataset'].get('white_background',
+                                                   False)))
+
+    rng = np.random.default_rng(seed)
+    data_stack: list = []
+
+    def next_frame_idx():
+        nonlocal data_stack
+        if not data_stack:
+            data_stack = list(range(len(scene.train_dataset)))
+        return data_stack.pop(int(rng.integers(len(data_stack))))
+
+    t0 = time.time()
+    for iteration in range(first_iteration, iterations + 1):
+        weights = loss_weights(cfg, iteration)
+        in_window, do_densify, do_reset, use_ss = schedule_flags(
+            iteration, **flags)
+        weights['_in_densify_window'] = 1.0 if in_window else 0.0
+        xyz_lr = float(scene.xyz_lr_fn(iteration))
+        deg = scene.active_sh_degree(iteration)
+        camera = scene.device_camera(next_frame_idx(), 'train')
+        state, metrics = step(state, camera, iteration, weights, xyz_lr,
+                              active_sh_degree=deg, bucket=bucket)
+
+        # validation before densify and the reset, as the JAX driver does
+        if (test_interval > 0 and iteration % test_interval == 0) \
+                or iteration in test_iterations:
+            validation(state, iteration, logger, exp_dir,
+                       max_val_frames=max_val_frames, bucket=bucket)
+            t0 = time.time()   # validation is not iteration time
+
+        if do_densify:
+            eps1, eps2 = densify_draws(state, iteration)
+            state, dinfo = densify_step(scene, state, eps1, eps2, use_ss)
+            dinfo = dict(zip(dinfo, torch.stack(list(dinfo.values()))
+                             .tolist()))        # the densify's one read
+            logger.log(iteration, {f'densify/{k}': int(v)
+                                   for k, v in dinfo.items()})
+            bucket = scene.bucket_for(int(dinfo['n_alive']))
+            refresh_knn(state, bucket)
+
+        if do_reset:
+            opacity_reset_step(state)
+
+        # the JAX driver's one-shot alarm; the counts are host integers
+        if not overflow_alarmed:
+            overflow_alarmed = _overflow_alarm(
+                cfg, iteration, metrics['overflow/pairs'],
+                metrics['overflow/rect'])
+        if iteration % log_every == 0 or iteration == 1:
+            m = _host(metrics)
+            m['iter_time'] = (time.time() - t0) / log_every * 1000.0
+            logger.log(iteration, m)
+            if progress and (iteration % (log_every * 10) == 0
+                             or iteration == 1):
+                print(f"[{iteration}/{iterations}] "
+                      f"loss={m['loss/total_loss']:.5f} "
+                      f"psnr={m['psnr']:.2f} n={int(m['n_alive'])} "
+                      f"({m['iter_time']:.0f} ms/it)", flush=True)
+            t0 = time.time()
+
+        if iteration in save_iterations:
+            ply.save_arena_ply(
+                os.path.join(exp_dir, 'point_cloud', f'iteration_{iteration}',
+                             'point_cloud.ply'),
+                state.gauss_params, state.gauss_aux)
+        if iteration in checkpoint_iterations:
+            scene.save_checkpoint(state, iteration, exp_dir)
+
+    return scene, state, logger
+
+
+def main(argv=None):
+    """`python -m gsavatar_torch.train [key=value ...]`: train the avatar
+    on the GPU, logging to `<exp_dir>/metrics.jsonl`."""
+    import sys
+    from gsavatar_torch.config import load_config
+    cfg = load_config(list(argv if argv is not None else sys.argv[1:]))
+    cfg['exp_dir'] = cfg.get('exp_dir') or os.path.join('exp',
+                                                        str(cfg['name']))
+    print(f"Optimizing {cfg['exp_dir']}")
+    training(cfg, log_every=int(cfg.get('log_every', 10) or 10))
+    print("\nTraining complete.")
+
+
+if __name__ == '__main__':
+    main()

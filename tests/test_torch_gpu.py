@@ -15,8 +15,9 @@ own scale (`composite.composite_pairs_bwd_scale`: the sum over the tile's
 pixels of its terms' magnitudes): the same pairs, but the 256-pixel sums,
 the colour prefixes and T rounded in another order. K3 1e-5 of each segment's sum of |values| (f32 adds in
 an order that changes from run to run) plus 4 float64 ulps of the plain
-version's largest running sum. The small training step on the card
-against the CPU: loss terms 1e-4 relative, each gradient leaf with a
+version's largest running sum. K4 1e-5 of each output's sum of |x| (the
+block's 1024 rows added in another order). The small training step on the
+card against the CPU: loss terms 1e-4 relative, each gradient leaf with a
 cosine > 0.999 and a mean error < 1e-3 of its largest value (bench.py)."""
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from gsavatar_torch.ops import segsum_blocked
 from gsavatar_torch.ops.rasterizer import composite
 from gsavatar_torch.ops.rasterizer.pairs import build_pairs
 from gsavatar_torch.ops.rasterizer.project import project
+from gsavatar_torch.tools import profile_narrow_dma as K4
 from gsavatar_torch.utils.transforms import covariance_from_scaling_rotation
 
 pytestmark = pytest.mark.gpu
@@ -187,6 +189,31 @@ def test_k2_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
         k3(torch.zeros((2, 10), device=cuda).T, ids, 4)
     with pytest.raises(ValueError):
         k3(v, ids[:5], 4)
+
+
+@pytest.mark.parametrize('n_blocks', [1, 2048], ids=['one', 'probe'])
+def test_k4_kernel_matches_plain(cuda, n_blocks):
+    x = torch.randn((n_blocks * 1024, 12), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(n_blocks))
+    before = K4.run.launches
+    got = K4.run(x)
+    torch.cuda.synchronize()
+    assert K4.run.launches == before + 1
+    want = K4.run_plain(x)
+    mag = x.abs().view(-1, 1024, 12).sum(1)
+    assert got.shape == (n_blocks, 12)
+    assert bool(((got - want).abs() <= 1e-5 * mag).all())
+
+
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    for bad in (torch.zeros((1000, 12), device=cuda),
+                torch.zeros((1024, 12), device=cuda, dtype=torch.float64),
+                torch.zeros((1024, 16), device=cuda),
+                torch.zeros((12, 1024), device=cuda).T,
+                torch.zeros((1024 * 12 + 1,), device=cuda)[1:].view(1024,
+                                                                     12)):
+        with pytest.raises(ValueError):
+            K4.run(bad)
 
 
 def _small_train_scene(device):

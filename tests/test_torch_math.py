@@ -201,15 +201,33 @@ def _leaves(d, prefix=''):
             yield f'{prefix}{k}', v
 
 
+# keys the JAX package reads with a default in its code, not from its yaml
+CODE_DEFAULTS = {'opt.bucket_granularity': 4096,    # gsavatar/scene.py:253
+                 'log_every': 10,                   # gsavatar/train.py:798
+                 'max_val_frames': None,            # gsavatar/train.py:546
+                 'strict_overflow': False}          # gsavatar/train.py:758
+
+
 def test_config_matches_yaml_defaults():
     """Every key of the port's config equals the JAX package's composed
-    config for dataset=synthetic, with overrides applied alike."""
+    config for dataset=synthetic, with overrides applied alike, or the
+    default the JAX code reads it with."""
     ov = ["dataset.img_hw=[540,540]", "model.gaussian.capacity=131072"]
     want = j_load_config(overrides=["dataset=synthetic"] + ov)
-    got = tconfig.load_config(ov)
+    got = tconfig.load_config(["dataset=synthetic"] + ov)
     for key, value in _leaves(got):
+        if key in CODE_DEFAULTS:
+            assert value == CODE_DEFAULTS[key], key
+            continue
         node = want
         for part in key.split('.'):
             node = node[part]
         node = node.to_dict() if hasattr(node, 'to_dict') else node
         assert value == node, key
+
+
+def test_config_groups_take_only_the_default():
+    with pytest.raises(NotImplementedError):
+        tconfig.load_config(["dataset=zjumocap_377_mono"])
+    assert tconfig.load_config(["texture=shallow_mlp"]) == \
+        tconfig.load_config()
