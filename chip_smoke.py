@@ -15,9 +15,11 @@ them. Phases, any failure ends the run with a non-zero exit:
    seeded initialisation, 20 frames through the `evaluate` render loop
    (`InferenceScene.render_frame`), with every kernel's launch count set to
    0 just before and read just after; then the per-stage times on one frame;
-4. K1 against its plain version on the pair arrays of one real frame, with
-   the kernel's time, the plain version's time and the least time the card
-   could take for the same work;
+4. K1 against its plain version on the pair arrays of one real frame
+   (alpha and final_T equal, colour within K1_TOL), with the kernel's time,
+   the plain version's time, the least time the card could take for the
+   same work, the (pair, pixel) walked in the fullest tile and the time of
+   that tile alone;
 5. render reference: a small avatar rendered on the card and, through the
    plain path, on the CPU, held to the repository's render gates;
 6. training path: the same avatar and shape through `Scene` and
@@ -26,9 +28,11 @@ them. Phases, any failure ends the run with a non-zero exit:
    30 steps cycling the training cameras, with the launch counts set to 0
    just before and read just after;
 7. K2 and K3 against their plain versions on the inputs of one full-width
-   training step (the pair arrays and the real cotangent for K2; the
-   hash-table backward and the pair-gradient reduction for K3), with their
-   times, plain times, bounds and, for K3, the time of `index_add_`;
+   training step (the pair arrays and the real cotangent for K2; all six K3
+   inputs of the step: the hash-table backward, the pair-gradient
+   reduction and the four AIAP neighbour gathers, each launched twice for
+   the same bits), with their times, plain times, bounds and, for K3, the
+   time of `index_add_` on each input;
 8. training reference: one small training step on the card and on the CPU
    with the same state, camera and draws, loss terms and gradients held to
    bench.py's gates;
@@ -82,16 +86,22 @@ SMALL_SHAPE = [
 # agree; only the colour sums are taken in another order (a sequential sum
 # against a matrix product), which moves them by a few ulp of values <= 1
 K1_TOL = 1e-5
+# K1's time on a bench-shape frame when one CTA walked each whole tile
+# (NVIDIA H100 80GB HBM3, 700 W), and the time the (tile, 32-pixel group)
+# design aims under
+K1_ONE_CTA_MS = 1.374
+K1_TARGET_MS = 0.35
 # K2 against its plain version: the same included pairs, but the 256-pixel
 # sums, the colour prefixes and T are rounded in another order, which moves
 # a value by some f32 ulps of the magnitudes of the terms it sums, however
 # much they cancel: every value within 1e-4 of its own scale
 # (composite.composite_pairs_bwd_scale)
 K2_TOL = 1e-4
-# K3 against its plain version: the kernel adds in f32 in an order that
-# changes from run to run (shared-memory atomics), so each segment is held
-# to 1e-5 of the sum of its values' magnitudes; the plain version's float64
-# running sum adds 4 ulps of the largest running sum of magnitudes
+# K3 against its plain version: the kernel adds in f32 (in a fixed order:
+# a shuffle tree per 32 rows, then the tiles and chunks in order), so each
+# segment is held to 1e-5 of the sum of its values' magnitudes; the plain
+# version's float64 running sum adds 4 ulps of the largest running sum of
+# magnitudes. Two launches on the same input must give the same bits
 K3_TOL = 1e-5
 # K3 launches per training step, from the code: the pair-gradient
 # reduction (pairs.build_pairs), the hash-table gradient
@@ -126,6 +136,9 @@ K4_TOL = 1e-5
 # f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# `timed` holds the stream this long per timed call (about 0.2 ms at the
+# card's clock), more than any wrapper here takes to launch
+SLEEP_CYCLES_PER_CALL = 400_000
 
 
 def log(*args):
@@ -145,18 +158,35 @@ def gpu_line() -> str:
 
 
 def timed(fn, reps: int) -> float:
-    """Mean device time of `fn()` in ms, CUDA events around `reps` calls
-    after one warm-up call."""
+    """Mean device time of `fn()` in ms: CUDA events around `reps` calls
+    after one warm-up call. The calls queue behind a sleep kernel long
+    enough for the host to enqueue all of them, so the events see the
+    device's work and not the host's launch cost (a small kernel's wrapper
+    can take longer on the host than the kernel on the card)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_ms(fn, reps: int) -> float:
+    """Mean host time of `fn()` in ms without waiting for the device: what
+    a call costs the host thread that launches it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1000.0 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def host_timed(fn, reps: int) -> float:
@@ -214,12 +244,16 @@ def frame_stages(scene, cam):
 def k1_work(pair_data, tile_start, grid_x):
     """What K1 must do on these inputs: per (pair, pixel) of every tile,
     the pairs each pixel walks up to and including the one that stops it,
-    those of them with power <= 0 (alpha evaluated) and those included."""
+    those of them with power <= 0 (alpha evaluated) and those included;
+    and the pairs walked in the fullest tile."""
     from gsavatar_torch.ops.rasterizer import composite as K
     px, py = K.pixel_coords(tile_start.shape[0] - 1, grid_x,
                             pair_data.device)
     walked = evaluated = included = 0
     bounds = tile_start.tolist()
+    fullest = max(range(len(bounds) - 1),
+                  key=lambda t: bounds[t + 1] - bounds[t])
+    fullest_walked = 0
     for t in range(len(bounds) - 1):
         s, e = bounds[t], bounds[t + 1]
         if e <= s:
@@ -238,7 +272,9 @@ def k1_work(pair_data, tile_start, grid_x):
         walked += int(before_stop.sum())
         evaluated += int((before_stop & (power <= 0.0)).sum())
         included += int((before_stop & ~skip & ~stop).sum())
-    return walked, evaluated, included
+        if t == fullest:
+            fullest_walked = int(before_stop.sum())
+    return walked, evaluated, included, fullest_walked
 
 
 # the columns of a pair row K1 and K2 read, and of a gradient row K2
@@ -276,10 +312,12 @@ def k1_record(pa, grid_x, launches):
         f"{float(err[:, 5:].max()):.3e}")
     if not max_err <= K1_TOL:
         fail(f"K1 disagrees with its plain version: {max_err} > {K1_TOL}")
+    if not torch.equal(got[:, 3:5], want[:, 3:5]):
+        fail("K1's alpha or final_T differs from its plain version")
 
     ms = timed(lambda: K.composite_pairs_fwd(pd, ts, grid_x), 200)
     plain_ms = timed(lambda: K.composite_pairs_fwd_plain(pd, ts, grid_x), 3)
-    walked, evaluated, included = k1_work(pd, ts, grid_x)
+    walked, evaluated, included, fullest_walked = k1_work(pd, ts, grid_x)
     # f32 operations the kernel's arithmetic needs: 12 for dx, dy, power and
     # its test on every walked (pair, pixel); 4 more (exp, opacity product,
     # clamp, alpha test) where power <= 0; 10 more (1 - alpha, T, its test,
@@ -289,12 +327,25 @@ def k1_record(pa, grid_x, launches):
     nbytes = pairs_bytes(pd, ts) + num_tiles * 8 * 256 * 4
     b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
     per_tile = torch.diff(ts)
+    # the fullest tile alone (every other tile emptied): the longest walk,
+    # which no split of the work across tiles can shorten
+    fullest = int(per_tile.argmax())
+    tiles = torch.arange(num_tiles + 1, device=ts.device)
+    ts_one = torch.where(tiles <= fullest, ts[fullest],
+                         ts[fullest + 1]).to(torch.int32)
+    alone_ms = timed(lambda: K.composite_pairs_fwd(pd, ts_one, grid_x), 200)
     log(f"K1 pairs per tile: max {int(per_tile.max())}, mean "
         f"{float(per_tile.float().mean()):.1f}, {num_tiles} tiles")
     log(f"K1 work: {walked} (pair, pixel) walked, {evaluated} evaluated, "
-        f"{included} included; {ops} f32 ops, {nbytes} bytes")
+        f"{included} included; {ops} f32 ops, {nbytes} bytes; "
+        f"{fullest_walked} (pair, pixel) walked in the fullest tile "
+        f"({int(per_tile.max())} pairs x 256 pixels = "
+        f"{int(per_tile.max()) * 256})")
     log(f"K1 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-        f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+        f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}); the fullest tile "
+        f"alone {alone_ms:.4f} ms; the one-CTA-per-tile design "
+        f"{K1_ONE_CTA_MS} ms on a frame of this shape, target <= "
+        f"{K1_TARGET_MS} ms")
     return {
         'name': 'composite_fwd', 'route': 'cuda',
         'source': 'gsavatar_torch/csrc/composite_fwd.cu',
@@ -572,7 +623,7 @@ def k2_record(args, launches):
     ms = timed(lambda: K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x), 100)
     plain_ms = timed(lambda: K.composite_pairs_bwd_plain(pd, ts, ct, fwd,
                                                          grid_x), 2)
-    walked, evaluated, included = k1_work(pd, ts, grid_x)
+    walked, evaluated, included, _ = k1_work(pd, ts, grid_x)
     # f32 operations: the forward's 12 per walked and 4 per evaluated
     # (pair, pixel), and per included one about 54 (T, w, the colour
     # prefixes, dL/dalpha, the nine terms) plus the 9 adds that sum them
@@ -599,11 +650,18 @@ def k2_record(args, launches):
 
 
 def k3_check(values, ids, num_segments, label):
-    """K3 against its plain version on one real input; returns (max abs
-    err, kernel ms, plain ms, index_add_ ms, bound ms, bound_by)."""
+    """K3 against its plain version on one real input, and launched twice
+    for the same bits; returns (max abs err, kernel ms, plain ms,
+    index_add_ ms, bound ms, bound_by)."""
     from gsavatar_torch.ops import segsum_blocked as S
     got = S.segment_sum_sorted_blocked(values, ids, num_segments)
+    again = S.segment_sum_sorted_blocked(values, ids, num_segments)
     want = S.segment_sum_sorted_blocked_plain(values, ids, num_segments)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        n_diff = int((got.view(torch.int32) != again.view(torch.int32)).sum())
+        fail(f"K3 gives other bits on a second launch on {label}: {n_diff} "
+             f"values differ")
     mag = S.segment_sum_sorted_blocked_plain(values.abs(), ids, num_segments)
     floor = 4 * torch.finfo(torch.float64).eps * float(
         values.double().abs().sum(0).max())
@@ -625,20 +683,28 @@ def k3_check(values, ids, num_segments, label):
             f"{float(rows.double().sum())!r}, |sum| "
             f"{float(mag[s_bad, c_bad])!r}, rows {rows.tolist()[:64]}")
         fail(f"K3 disagrees with its plain version on {label}")
-    ms = timed(lambda: S.segment_sum_sorted_blocked(values, ids,
-                                                    num_segments), 50)
+    kernel = lambda: S.segment_sum_sorted_blocked(values, ids, num_segments)
+    library = lambda: torch.zeros(
+        (num_segments, values.shape[1]), device=values.device).index_add_(
+            0, ids, values)
+    ms = timed(kernel, 50)
     plain_ms = timed(lambda: S.segment_sum_sorted_blocked_plain(
         values, ids, num_segments), 3)
-    lib_ms = timed(lambda: torch.zeros(
-        (num_segments, values.shape[1]), device=values.device).index_add_(
-            0, ids, values), 50)
+    lib_ms = timed(library, 50)
+    host_ms, lib_host_ms = enqueue_ms(kernel, 50), enqueue_ms(library, 50)
     M, C = values.shape
     b_ms, b_by, t_bytes, t_ops = bound(M * (4 + 4 * C)
                                        + num_segments * 4 * C, M * C)
     log(f"K3 {label}: {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes {t_bytes:.4f}, "
-        f"operations {t_ops:.5f})")
+        f"operations {t_ops:.5f}); two launches bit-equal; host per call "
+        f"{host_ms:.4f} ms, index_add_ {lib_host_ms:.4f} ms")
     return max_err, ms, plain_ms, lib_ms, b_ms, b_by
+
+
+# what each K3 input of a training step sums, by its column count
+K3_INPUTS = {2: 'hash table', 9: 'pair gradients', 3: 'AIAP gather, C=3',
+             6: 'AIAP gather, C=6'}
 
 
 def train_phases():
@@ -647,15 +713,19 @@ def train_phases():
     if len(seen['k2']) != 1 or len(seen['k3']) != K3_PER_STEP:
         fail(f"captured {len(seen['k2'])} K2 and {len(seen['k3'])} K3 "
              f"launches in one step")
-    by_cols = {}
-    for values, ids, n in seen['k3']:
-        by_cols.setdefault(values.shape[1], (values, ids, n))
-    hash_in, pair_in = by_cols[2], by_cols[9]
     with torch.no_grad():
         records = [k2_record(seen['k2'][0], launches['composite_bwd'])]
-        k3_check(*pair_in, 'pair gradients')
-        max_err, ms, plain_ms, lib_ms, b_ms, b_by = k3_check(*hash_in,
-                                                              'hash table')
+        k3 = {}
+        for i, (values, ids, n) in enumerate(seen['k3']):
+            label = f"{K3_INPUTS[values.shape[1]]} (launch {i + 1} of " \
+                f"{K3_PER_STEP})"
+            k3[label] = k3_check(values, ids, n, label)
+    log("K3 against index_add_ on one step's inputs: " + "; ".join(
+        f"{label} {r[1]:.4f} vs {r[3]:.4f} ms" for label, r in k3.items()))
+    # the record's times are the hash table's, its error the worst input's
+    _, ms, plain_ms, lib_ms, b_ms, b_by = next(
+        r for label, r in k3.items() if label.startswith('hash table'))
+    max_err = max(r[0] for r in k3.values())
     records.append({
         'name': 'segsum', 'route': 'cuda',
         'source': 'gsavatar_torch/csrc/segsum.cu',

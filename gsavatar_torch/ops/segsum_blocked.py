@@ -8,18 +8,25 @@ a sum, whatever they hold (NaN included).
 
 `segment_sum_sorted_blocked` launches the hand-written Hopper kernel
 (`gsavatar_torch/csrc/segsum.cu`) for CUDA tensors and counts its launches
-in `segment_sum_sorted_blocked.launches`. Only for CPU tensors does it take
-the plain version, `segment_sum_sorted_blocked_plain`: the JAX package's
-portable formulation (`gsavatar/ops/segsum.py:segment_sum_sorted`: mask,
-cumsum, searchsorted, difference), accumulated in float64, so that it stays
-an exact enough reference at millions of rows."""
+in `segment_sum_sorted_blocked.launches`. The kernel splits the rows into
+chunks (`chunk_rows`), one warp each; the partial sums of each chunk's
+first and last segment go to two carry records per chunk, which the
+wrapper allocates (`carry_records`) and a second pass adds in chunk order, so
+the sums come out the same bit for bit on every run. Only for CPU tensors
+does it take the plain version, `segment_sum_sorted_blocked_plain`: the
+JAX package's portable formulation (`gsavatar/ops/segsum.py:
+segment_sum_sorted`: mask, cumsum, searchsorted, difference), accumulated
+in float64, so that it stays an exact enough reference at millions of
+rows."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-SEG_BLOCK = 512     # output segments per block of the kernel
+# rows of a chunk, one warp of the kernel each: 256, or 64 for inputs under
+# SMALL_ROWS rows, which 256-row chunks would spread over too few warps
+CHUNK_ROWS, SMALL_CHUNK_ROWS, SMALL_ROWS = 256, 64, 1 << 20
 # the column counts the kernel is built for: the hash-table gradient (2),
 # the AIAP gathers (3 and 6) and the pair gradients (9)
 WIDTHS = (2, 3, 6, 9)
@@ -38,16 +45,26 @@ def segment_sum_sorted_blocked_plain(values, seg_ids, num_segments: int):
     return (csum[end] - csum[start]).float()
 
 
-def block_starts(seg_ids, num_segments: int):
-    """Row span bounds (NB + 1,) int32 of the kernel's blocks of 512
-    segments: the first row whose id reaches each block's first segment
-    (bounds past the last segment clamp to num_segments, so that dropped
-    ids fall after the last span)."""
-    nb = (num_segments + SEG_BLOCK - 1) // SEG_BLOCK
-    bounds = torch.clamp_max(
-        torch.arange(nb + 1, dtype=torch.int32, device=seg_ids.device)
-        * SEG_BLOCK, num_segments)
-    return torch.searchsorted(seg_ids, bounds, side='left', out_int32=True)
+def chunk_rows(num_rows: int) -> int:
+    """The rows of each of the kernel's chunks for an input of num_rows."""
+    return SMALL_CHUNK_ROWS if num_rows < SMALL_ROWS else CHUNK_ROWS
+
+
+def carry_records(num_rows: int) -> int:
+    """The kernel's carry records for M = num_rows rows: two per chunk (the
+    chunk's first and last segment), each an id and a row of values."""
+    return 2 * (-(-num_rows // chunk_rows(num_rows)))
+
+
+def _launcher():
+    """The kernel's C entry point, its argument types set once."""
+    from gsavatar_torch import kernels
+    fn = kernels.load('segsum').gs_segsum
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def segment_sum_sorted_blocked(values, seg_ids, num_segments: int):
@@ -71,20 +88,23 @@ def segment_sum_sorted_blocked(values, seg_ids, num_segments: int):
                          f"{seg_ids.dtype} {tuple(seg_ids.shape)}")
     if not (values.is_contiguous() and seg_ids.is_contiguous()):
         raise ValueError("K3 takes contiguous tensors")
+    if values.data_ptr() % 16:
+        raise ValueError("values must be 16-byte aligned")
     if not 0 <= num_segments < 2 ** 31 // values.shape[1]:
         raise ValueError(f"num_segments {num_segments} out of range")
-    from gsavatar_torch import kernels
-    lib = kernels.load('segsum')
-    lib.gs_segsum.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.gs_segsum.restype = ctypes.c_int
-    starts = block_starts(seg_ids, num_segments)
-    out = torch.empty((num_segments, values.shape[1]), dtype=torch.float32,
+    num_rows, n_cols = values.shape
+    n_rec = carry_records(num_rows)
+    # one allocation: the output, then the carry records' ids (int32) and
+    # values, which the kernel reads at byte offsets into the same buffer
+    n_out = num_segments * n_cols
+    buf = torch.empty(n_out + n_rec * (1 + n_cols), dtype=torch.float32,
                       device=values.device)
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = lib.gs_segsum(values.data_ptr(), seg_ids.data_ptr(),
-                        starts.data_ptr(), out.data_ptr(), values.shape[1],
-                        num_segments, stream)
+    out = buf[:n_out].view(num_segments, n_cols)
+    rec_id = buf.data_ptr() + 4 * n_out
+    err = _launcher()(values.data_ptr(), seg_ids.data_ptr(), buf.data_ptr(),
+                      rec_id, rec_id + 4 * n_rec, num_rows, n_cols,
+                      num_segments,
+                      torch.cuda.current_stream(values.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segsum launch failed: CUDA error {err}")
     segment_sum_sorted_blocked.launches += 1

@@ -13,9 +13,11 @@ as the plain version's tensor expression does, so the two include the same
 pairs; the colour sums are taken in another order. K2 1e-4 of each value's
 own scale (`composite.composite_pairs_bwd_scale`: the sum over the tile's
 pixels of its terms' magnitudes): the same pairs, but the 256-pixel sums,
-the colour prefixes and T rounded in another order. K3 1e-5 of each segment's sum of |values| (f32 adds in
-an order that changes from run to run) plus 4 float64 ulps of the plain
-version's largest running sum. K4 1e-5 of each output's sum of |x| (the
+the colour prefixes and T rounded in another order. K1's alpha and
+final_T rows equal the plain version's exactly. K3 1e-5 of each segment's
+sum of |values| (f32 adds in a fixed order other than the plain version's)
+plus 4 float64 ulps of the plain version's largest running sum, and the
+same bits on a second launch. K4 1e-5 of each output's sum of |x| (the
 block's 1024 rows added in another order). The small training step on the
 card against the CPU: loss terms 1e-4 relative, each gradient leaf with a
 cosine > 0.999 and a mean error < 1e-3 of its largest value (bench.py)."""
@@ -81,8 +83,61 @@ def test_k1_kernel_matches_plain(cuda, n, seed, scale):
     assert got.shape == (GRID * GRID, 8, 256)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=0, atol=1e-5)
+    assert torch.equal(got[:, 3:5], want[:, 3:5])
     if seed == 1:     # dense enough that some pixels hit the T floor
         assert float(got[:, 4].min()) < 1e-3
+
+
+def test_k1_heavy_tile_among_light_tiles(cuda):
+    """A 4 x 4 tile frame whose tile 5 holds 12,000 pairs, the others up to
+    40: the heavy tile is walked by eight (tile, 32-pixel group) units in
+    batches. Faint splats (opacity under 0.012) cover the heavy tile, and
+    every 40th is an opaque one on its lowest four pixel rows, so pixels
+    there stop while the others walk every pair. Alpha and final_T equal
+    the plain version's exactly, colour within 1e-5."""
+    rng = np.random.default_rng(7)
+    grid, heavy = 4, 5
+    counts = rng.integers(0, 41, size=grid * grid)
+    counts[heavy] = 12000
+    rows = []
+    for t, n in enumerate(counts):
+        x0, y0 = (t % grid) * 16, (t // grid) * 16
+        m2d = np.array([x0 + 8, y0 + 8]) + rng.uniform(-10, 10, (n, 2))
+        sx, sy = rng.uniform(0.7, 4.0, (2, n))
+        opac = rng.uniform(0.004, 0.012, n)
+        if t == heavy:
+            m2d[::40, 1] = rng.uniform(y0 + 12, y0 + 16, len(m2d[::40]))
+            opac[::40] = 0.99
+        rho = rng.uniform(-0.6, 0.6, n)
+        det = (sx * sy) ** 2 * (1 - rho ** 2)
+        conic = np.stack([sy ** 2 / det, -rho * sx * sy / det,
+                          sx ** 2 / det], 1)
+        rows.append(np.concatenate([m2d, conic, rng.random((n, 3)),
+                                    opac[:, None], np.zeros((n, 3))], 1))
+    pd = torch.as_tensor(np.concatenate(rows).astype(np.float32),
+                         device=cuda)
+    ts = torch.as_tensor(np.r_[0, np.cumsum(counts)].astype(np.int32),
+                         device=cuda)
+    before = composite.composite_pairs_fwd.launches
+    got = composite.composite_pairs_fwd(pd, ts, grid)
+    torch.cuda.synchronize()
+    assert composite.composite_pairs_fwd.launches == before + 1
+    want = composite.composite_pairs_fwd_plain(pd, ts, grid)
+    assert torch.equal(got[:, 3:5], want[:, 3:5])
+    assert float((got[:, 0:3] - want[:, 0:3]).abs().max()) <= 1e-5
+    assert not got[:, 5:].any()
+    # which pixels of the heavy tile stop: the plain version's running
+    # product falls below 1e-4 at a pair it does not skip
+    d = pd[int(ts[heavy]):int(ts[heavy + 1])]
+    px, py = composite.pixel_coords(grid * grid, grid, cuda)
+    dx, dy = d[:, 0:1] - px[heavy], d[:, 1:2] - py[heavy]
+    power = -0.5 * (d[:, 2:3] * dx * dx + d[:, 4:5] * dy * dy) \
+        - d[:, 3:4] * dx * dy
+    alpha = torch.clamp_max(d[:, 8:9] * torch.exp(power), 0.99)
+    skip = (power > 0.0) | (alpha < 1.0 / 255.0)
+    T_after = torch.cumprod(1.0 - torch.where(skip, 0.0, alpha), dim=0)
+    stopped = (~skip & (T_after < 1e-4)).any(0)
+    assert bool(stopped.any()) and not bool(stopped.all())
 
 
 def test_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -140,6 +195,30 @@ def test_k2_kernel_matches_plain(cuda, n, seed, scale):
     assert float(want[:, :9].abs().amax(0).min()) > 0.0
 
 
+def _k3_holds(values, ids, S):
+    """K3 launched twice on (values, ids): within tolerance of the plain
+    version, every output row written, the same bits both times."""
+    k3 = segsum_blocked.segment_sum_sorted_blocked
+    before = k3.launches
+    got = k3(values, ids, S)
+    again = k3(values, ids, S)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 2
+    if values.shape[0]:
+        plain = segsum_blocked.segment_sum_sorted_blocked_plain
+        want = plain(values, ids, S)
+        mag = plain(values.abs(), ids, S)
+        floor = 4 * torch.finfo(torch.float64).eps * float(
+            values.nan_to_num(0.0).double().abs().sum(0).max())
+    else:     # the plain version indexes an empty running sum at M = 0
+        want = mag = torch.zeros_like(got)
+        floor = 0.0
+    assert got.shape == (S, values.shape[1]) and bool(got.isfinite().all())
+    assert bool(((got - want).abs() <= 1e-5 * mag + floor).all())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got
+
+
 @pytest.mark.parametrize('M,C,S', [(5000, 2, 1200), (200000, 9, 50000),
                                    (3000000, 2, 1 << 20), (4000, 3, 700),
                                    (40000, 6, 9000)])
@@ -151,17 +230,70 @@ def test_k3_kernel_matches_plain(cuda, M, C, S):
                                    dtype=torch.int32, generator=g)).values
     values = torch.randn((M, C), device=cuda, generator=g)
     values[ids >= S] = float('nan')
-    before = segsum_blocked.segment_sum_sorted_blocked.launches
-    got = segsum_blocked.segment_sum_sorted_blocked(values, ids, S)
-    torch.cuda.synchronize()
-    assert segsum_blocked.segment_sum_sorted_blocked.launches == before + 1
-    plain = segsum_blocked.segment_sum_sorted_blocked_plain
-    want = plain(values, ids, S)
-    mag = plain(values.abs(), ids, S)
-    floor = 4 * torch.finfo(torch.float64).eps * float(
-        values.nan_to_num(0.0).double().abs().sum(0).max())
-    assert got.shape == (S, C) and bool(got.isfinite().all())
-    assert bool(((got - want).abs() <= 1e-5 * mag + floor).all())
+    _k3_holds(values, ids, S)
+
+
+def _runs(lengths, S, seed):
+    """Sorted int32 ids: runs of the given lengths on distinct segments."""
+    rng = np.random.default_rng(seed)
+    seg = np.sort(rng.choice(S, size=len(lengths), replace=False))
+    return np.repeat(seg, lengths).astype(np.int32)
+
+
+@pytest.mark.parametrize('C', [2, 3, 6, 9])
+@pytest.mark.parametrize('case', ['one_segment', 'long_segments', 'ragged',
+                                  'no_rows', 'no_segments', 'empty',
+                                  'only_dropped'])
+def test_k3_edge_cases(cuda, case, C):
+    """One segment holding every row; segments of hundreds to thousands of
+    rows, longer than the kernel's chunk (64 rows at these sizes); a row
+    count that is no multiple of the chunk; M = 0; S = 0; both; only
+    dropped ids, with NaN rows."""
+    rng = np.random.default_rng(C)
+    S = 700
+    if case == 'one_segment':
+        ids = np.full(300_001, 5, np.int32)
+    elif case == 'long_segments':
+        ids = _runs(rng.integers(200, 6000, size=40), S, C)
+    elif case == 'ragged':
+        ids = np.sort(rng.integers(0, S, size=256 * 41 + 77)).astype(np.int32)
+    elif case in ('no_rows', 'empty'):
+        ids = np.zeros(0, np.int32)
+    elif case == 'no_segments':
+        ids = np.sort(rng.integers(0, 50, size=1000)).astype(np.int32)
+    else:
+        ids = np.sort(rng.integers(S, S + 30, size=3000)).astype(np.int32)
+    if case in ('no_segments', 'empty'):
+        S = 0
+    M = ids.shape[0]
+    values = torch.as_tensor(
+        rng.standard_normal((M, C)).astype(np.float32), device=cuda)
+    t_ids = torch.as_tensor(ids, device=cuda)
+    values[t_ids >= S] = float('nan')
+    got = _k3_holds(values, t_ids, S)
+    if case in ('only_dropped', 'no_rows'):
+        assert not got.any()
+
+
+def test_k3_same_bits_on_every_launch(cuda):
+    """The hash-table backward's shape (16 levels x 8 corners x 53,248
+    rows into 16 x 2^16 segments), the coarse levels crowded into few
+    segments: five launches, one set of bits."""
+    g = torch.Generator(cuda).manual_seed(4)
+    levels, rows, size = 16, 8 * 53248, 1 << 16
+    cells = torch.tensor([300 if lvl < 3 else size for lvl in range(levels)],
+                         device=cuda)[:, None]
+    local = (torch.rand((levels, rows), device=cuda, generator=g)
+             ** 2 * cells).int()
+    ids = (torch.sort(local, dim=1).values
+           + torch.arange(levels, device=cuda, dtype=torch.int32)[:, None]
+           * size).reshape(-1)
+    values = torch.randn((ids.shape[0], 2), device=cuda, generator=g)
+    k3 = segsum_blocked.segment_sum_sorted_blocked
+    first = _k3_holds(values, ids, levels * size).view(torch.int32)
+    for _ in range(3):
+        assert torch.equal(k3(values, ids, levels * size).view(torch.int32),
+                           first)
 
 
 def test_k2_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -189,6 +321,8 @@ def test_k2_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
         k3(torch.zeros((2, 10), device=cuda).T, ids, 4)
     with pytest.raises(ValueError):
         k3(v, ids[:5], 4)
+    with pytest.raises(ValueError):     # not 16-byte aligned
+        k3(torch.zeros(21, device=cuda)[1:].view(10, 2), ids, 4)
 
 
 @pytest.mark.parametrize('n_blocks', [1, 2048], ids=['one', 'probe'])

@@ -17,7 +17,8 @@ import torch
 
 from gsavatar_torch.ops import segsum as tseg
 from gsavatar_torch.ops.segsum_blocked import (
-    block_starts, segment_sum_sorted_blocked,
+    CHUNK_ROWS, SMALL_CHUNK_ROWS, SMALL_ROWS, carry_records, chunk_rows,
+    segment_sum_sorted_blocked,
     segment_sum_sorted_blocked_plain)
 
 from gsavatar.ops import segsum as jseg
@@ -90,13 +91,120 @@ def test_k3_wrapper_takes_plain_version_only_for_cpu_tensors():
                                    torch.from_numpy(ids).to('meta'), 100)
 
 
-def test_block_starts_end_before_dropped_ids():
-    """The kernel's block spans: block b starts at the first id >= 512 b,
-    and the last span ends before the first dropped id."""
-    ids = torch.tensor([0, 0, 3, 511, 512, 700, 1000, 1001, 1500],
-                       dtype=torch.int32)
-    torch.testing.assert_close(block_starts(ids, 1001),
-                               torch.tensor([0, 4, 7], dtype=torch.int32))
+def test_carry_records_two_per_chunk():
+    """The wrapper's sizing: 64-row chunks under 2^20 rows, 256-row chunks
+    from there, two carry records per chunk, a ragged last chunk included,
+    none for no rows."""
+    assert chunk_rows(SMALL_ROWS - 1) == SMALL_CHUNK_ROWS == 64
+    assert chunk_rows(SMALL_ROWS) == CHUNK_ROWS == 256
+    assert carry_records(0) == 0
+    assert carry_records(1) == 2
+    assert carry_records(SMALL_CHUNK_ROWS) == 2
+    assert carry_records(SMALL_CHUNK_ROWS + 1) == 4
+    assert carry_records(116731) == 2 * 1824            # pair gradients
+    assert carry_records(SMALL_ROWS + 1) == 2 * (SMALL_ROWS // 256 + 1)
+    assert carry_records(16 * 8 * 53248) == 2 * 16 * 8 * 53248 // 256
+
+
+def _chunked_model(vals, ids, S, chunk):
+    """csrc/segsum.cu's partition in numpy, to check its bookkeeping on the
+    CPU: each chunk of `chunk` rows stores the runs that lie wholly
+    inside it, zeroes the empty segments after each run that ends in it
+    (chunk 0 also those before the first row), and writes two carry
+    records (its first and last run; a one-run chunk's second record holds
+    zeros; a dropped run's id is -1); then the first record of each id
+    sums that id's records in order. Every output row must be written
+    exactly once."""
+    M, C = vals.shape
+    n_rec = 2 * (-(-M // chunk))
+    out = np.full((S, C), np.nan)
+    writes = np.zeros(S, int)
+
+    def write(lo, hi, value):
+        out[lo:hi] = value
+        writes[lo:hi] += 1
+
+    if M:
+        write(0, max(min(int(ids[0]), S), 0), 0.0)
+    else:
+        write(0, S, 0.0)
+    rec_id = np.full(n_rec, -2)
+    rec_val = np.zeros((n_rec, C))
+    for w in range(n_rec // 2):
+        lo_row = w * chunk
+        cid = ids[lo_row:lo_row + chunk]
+        ok = (cid >= 0) & (cid < S)
+        cv = np.where(ok[:, None], vals[lo_row:lo_row + chunk], 0.0)
+        cut = np.flatnonzero(np.diff(cid)) + 1
+        runs = list(zip(np.r_[0, cut], np.r_[cut, len(cid)]))
+        for k, (a, b) in enumerate(runs):
+            s, my = cv[a:b].astype(np.float64).sum(0), int(cid[a])
+            rid = my if 0 <= my < S else -1
+            if k == 0:
+                rec_id[2 * w], rec_val[2 * w] = rid, s
+            if k == len(runs) - 1:
+                rec_id[2 * w + 1] = rid
+                rec_val[2 * w + 1] = 0.0 if k == 0 else s
+            if 0 < k < len(runs) - 1 and rid >= 0:
+                write(my, my + 1, s)
+            nxt = int(ids[lo_row + b]) if lo_row + b < M else S
+            write(max(my + 1, 0), min(nxt, S), 0.0)
+    assert not (rec_id == -2).any()          # every record is written
+    for r in range(n_rec):
+        my = rec_id[r]
+        if my < 0 or (r > 0 and rec_id[r - 1] == my):
+            continue
+        q = r
+        while q < n_rec and rec_id[q] == my:
+            q += 1
+        write(my, my + 1, rec_val[r:q].sum(0))
+    assert (writes == 1).all()               # every row written once
+    return out
+
+
+def _runs_input(lengths, C, S, seed, drop=0):
+    """Sorted ids with runs of the given lengths over a spread of segment
+    ids, then `drop` dropped rows (ids >= S) carrying NaN."""
+    rng = np.random.default_rng(seed)
+    seg = np.sort(rng.choice(S, size=len(lengths), replace=False))
+    ids = np.concatenate([np.repeat(seg, lengths),
+                          rng.integers(S, S + 9, size=drop)])
+    ids = np.sort(ids).astype(np.int32)
+    vals = rng.standard_normal((ids.shape[0], C)).astype(np.float32)
+    vals[ids >= S] = np.nan
+    return ids, vals
+
+
+@pytest.mark.parametrize('chunk', [SMALL_CHUNK_ROWS, CHUNK_ROWS])
+@pytest.mark.parametrize('case', ['spanning_chunks', 'one_segment', 'ragged',
+                                  'only_dropped'])
+def test_chunked_partition_matches_pallas_interpret(case, chunk):
+    """The kernel's chunk and carry bookkeeping (`_chunked_model`) and the
+    plain version against the JAX kernel in interpret mode: segments that
+    span many chunks, one segment holding every row, a row count that is
+    not a multiple of the chunk, and only dropped rows."""
+    rng = np.random.default_rng(11)
+    S, C = 600, 2
+    if case == 'spanning_chunks':
+        ids, vals = _runs_input(rng.integers(1, 1300, size=12), C, S, 1,
+                                drop=30)
+    elif case == 'one_segment':
+        ids, vals = _runs_input([5 * chunk + 3], C, S, 2)
+    elif case == 'ragged':
+        ids, vals = _sorted_input(7 * chunk + 77, C, S, seed=3)
+    else:
+        ids = np.sort(rng.integers(S, S + 50, size=700)).astype(np.int32)
+        vals = np.full((700, C), np.nan, np.float32)
+    want = np.asarray(segment_sum_sorted_blocked_t(
+        jnp.asarray(vals.T), jnp.asarray(ids), S, interpret=True))
+    tol = 1e-5 * _abs_sums(ids, vals, S) + 1e-30
+    np.testing.assert_array_less(
+        np.abs(_chunked_model(vals, ids, S, chunk) - want), tol)
+    got = segment_sum_sorted_blocked(torch.from_numpy(vals),
+                                     torch.from_numpy(ids), S)
+    np.testing.assert_array_less(np.abs(got.numpy() - want), tol)
+    if case == 'only_dropped':
+        assert not got.numpy().any()
 
 
 def test_segment_sum_unsorted_matches_jax():
