@@ -26,13 +26,19 @@ them. Phases, any failure ends the run with a non-zero exit:
    `train.make_train_step` (the default config's losses, LPIPS included,
    the converter's optimizer, the arena Adam, the densify statistics),
    30 steps cycling the training cameras, with the launch counts set to 0
-   just before and read just after;
+   just before and read just after; then the determinism probe: one more
+   full-width forward and backward twice on the same state and draws (the
+   gradient leaves that differ bit for bit; any difference fails), then
+   once under `torch.use_deterministic_algorithms(True, warn_only=True)`
+   (the operations that warn);
 7. K2 and K3 against their plain versions on the inputs of one full-width
-   training step (the pair arrays and the real cotangent for K2; all six K3
-   inputs of the step: the hash-table backward, the pair-gradient
-   reduction and the four AIAP neighbour gathers, each launched twice for
-   the same bits), with their times, plain times, bounds and, for K3, the
-   time of `index_add_` on each input;
+   training step (the pair arrays and the real cotangent for K2, launched
+   twice for the same bits, with the time of the fullest tile alone and
+   the stage that paces it; all six K3 inputs of the step: the hash-table
+   backward, the pair-gradient reduction and the four AIAP neighbour
+   gathers, each launched twice for the same bits), with their times,
+   plain times, bounds and, for K3, the time of `index_add_` on each
+   input;
 8. training reference: one small training step on the card and on the CPU
    with the same state, camera and draws, loss terms and gradients held to
    bench.py's gates;
@@ -97,6 +103,11 @@ K1_TARGET_MS = 0.35
 # much they cancel: every value within 1e-4 of its own scale
 # (composite.composite_pairs_bwd_scale)
 K2_TOL = 1e-4
+# K2's time on a bench-shape training step's input when one CTA walked each
+# whole tile (NVIDIA H100 80GB HBM3, 700 W), and the time the (tile, 32-pixel
+# group) design aims under
+K2_ONE_CTA_MS = 1.2169
+K2_TARGET_MS = 0.40
 # K3 against its plain version: the kernel adds in f32 (in a fixed order:
 # a shuffle tree per 32 rows, then the tiles and chunks in order), so each
 # segment is held to 1e-5 of the sum of its values' magnitudes; the plain
@@ -327,12 +338,7 @@ def k1_record(pa, grid_x, launches):
     nbytes = pairs_bytes(pd, ts) + num_tiles * 8 * 256 * 4
     b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
     per_tile = torch.diff(ts)
-    # the fullest tile alone (every other tile emptied): the longest walk,
-    # which no split of the work across tiles can shorten
-    fullest = int(per_tile.argmax())
-    tiles = torch.arange(num_tiles + 1, device=ts.device)
-    ts_one = torch.where(tiles <= fullest, ts[fullest],
-                         ts[fullest + 1]).to(torch.int32)
+    ts_one, _ = fullest_tile_only(ts)
     alone_ms = timed(lambda: K.composite_pairs_fwd(pd, ts_one, grid_x), 200)
     log(f"K1 pairs per tile: max {int(per_tile.max())}, mean "
         f"{float(per_tile.float().mean()):.1f}, {num_tiles} tiles")
@@ -447,10 +453,10 @@ def train_reference():
         f"{m_c['raster/n_pairs']} on the CPU")
 
 
-def capture_kernel_inputs(scene, state, cam, weights, bucket):
-    """One more full-width forward and backward (no update), recording the
-    inputs K2 and K3 receive: the gradients, and the arguments of each
-    launch."""
+def capture_kernel_inputs(scene, state, cam, weights, bucket, draws=None):
+    """One more full-width forward and backward (no update; new draws
+    unless given), recording the inputs K2 and K3 receive: the metrics, the
+    gradients, and the arguments of each launch."""
     import gsavatar_torch.ops.segsum as segsum_mod
     from gsavatar_torch.ops.rasterizer import composite
     from gsavatar_torch.train import draw, make_grad_fn
@@ -477,14 +483,88 @@ def capture_kernel_inputs(scene, state, cam, weights, bucket):
     composite.composite_pairs_bwd = rec_bwd
     segsum_mod.segment_sum_sorted_blocked = rec_k3
     try:
-        _, _, grads = make_grad_fn(scene)(
+        metrics, _, grads = make_grad_fn(scene)(
             state, cam, LATE_ITERATION, weights,
-            draw(scene, state.generator), 0, bucket, scene.raster_config)
+            draws if draws is not None else draw(scene, state.generator), 0,
+            bucket, scene.raster_config)
     finally:
         composite.composite_pairs_bwd = bwd
         segsum_mod.segment_sum_sorted_blocked = k3
     torch.cuda.synchronize()
-    return grads, seen
+    return metrics, grads, seen
+
+
+def _grad_leaves(grads):
+    """Every gradient leaf of a grad_fn result, by name."""
+    out = {f'conv/{k}': v for k, v in grads['conv'].items()}
+    out.update({f'subject/{k}': v for k, v in grads['subject'].items()})
+    out.update({f'gauss/{f}': getattr(grads['gauss'], f)
+                for f in ('xyz', 'features_dc', 'features_rest', 'scaling',
+                          'rotation', 'opacity')})
+    out['means2d'] = grads['means2d']
+    return out
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def determinism_probe(scene, state, cam, weights, bucket):
+    """Whether the full-width step sums in a run-dependent order: its
+    forward and backward twice on the same state and draws, with the loss
+    terms, the inputs of K2 (the pair rows, K1's output, the cotangent) and
+    of K3, and the gradient leaves that differ bit for bit between the two;
+    then a third call under torch.use_deterministic_algorithms(True,
+    warn_only=True), restored after it, with the operations that warn.
+    Fails if the two calls differ."""
+    import warnings
+    from gsavatar_torch.train import draw
+    draws = draw(scene, state.generator)
+
+    def run():
+        metrics, grads, seen = capture_kernel_inputs(scene, state, cam,
+                                                     weights, bucket, draws)
+        return metrics, _grad_leaves(grads), seen
+
+    (ma, ga, sa), (mb, gb, sb) = run(), run()
+    diff = {'loss terms': [k for k in ma if k.startswith('loss/')
+                           and float(ma[k]) != float(mb[k])],
+            'K2 inputs': [n for n, x, y in zip(
+                ('pair rows', 'tile ranges', 'cotangent', 'K1 output'),
+                sa['k2'][0], sb['k2'][0]) if not _same_bits(x, y)],
+            'K3 inputs': [f"{i} ({tuple(x[0].shape)})"
+                          for i, (x, y) in enumerate(zip(sa['k3'], sb['k3']))
+                          if not all(_same_bits(u, v)
+                                     for u, v in zip(x[:2], y[:2]))],
+            'gradient leaves': [k for k in ga
+                                if not _same_bits(ga[k], gb[k])]}
+    log(f"determinism: two calls on the same state and draws differ in "
+        + "; ".join(f"{k} {v}" for k, v in diff.items()
+                    if k != 'gradient leaves')
+        + f"; gradient leaves {len(diff['gradient leaves'])} of {len(ga)} "
+        + str(diff['gradient leaves'][:4]))
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            run()
+            # an operation that alerts on the card, so that an empty list
+            # of the step's warnings means something
+            torch.histc(torch.ones(4, device=DEVICE), bins=2)
+        finally:
+            torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+    msgs = sorted({str(w.message).strip().splitlines()[0][:160]
+                   for w in caught})
+    log(f"determinism: {len(msgs)} warnings under "
+        f"use_deterministic_algorithms(True, warn_only=True), the histc "
+        f"check's included" + "".join(f"\n  {m}" for m in msgs))
+    # cuDNN's default convolution backward summed in a run-dependent order
+    # (ops/conv.py holds it to deterministic algorithms)
+    if any(diff.values()):
+        fail(f"two calls of the step on the same inputs differ: {diff}")
 
 
 def train_main():
@@ -582,23 +662,60 @@ def train_main():
     if not all(v > 0 for v in moved.values()):
         fail(f"parameters did not change: {moved}")
 
-    grads, seen = capture_kernel_inputs(scene, state, cams[0], weights,
-                                        bucket)
-    leaves = list(grads['conv'].values()) + [
-        getattr(grads['gauss'], f) for f in ('xyz', 'features_dc',
-                                             'features_rest', 'scaling',
-                                             'rotation', 'opacity')] + [
-        grads['means2d']]
+    _, grads, seen = capture_kernel_inputs(scene, state, cams[0], weights,
+                                           bucket)
+    leaves = list(_grad_leaves(grads).values())
     if not all(bool(g.isfinite().all()) for g in leaves):
         fail("a gradient leaf of the full-width step is not finite")
     log(f"train gradients: {len(leaves)} leaves, all finite")
+    determinism_probe(scene, state, cams[0], weights, bucket)
     return launches, seen
+
+
+def fullest_tile_only(ts):
+    """Tile ranges with every tile but the fullest emptied, and that tile:
+    the longest walk, which no split of the work across tiles can shorten."""
+    fullest = int(torch.diff(ts).argmax())
+    tiles = torch.arange(ts.shape[0], device=ts.device)
+    return torch.where(tiles <= fullest, ts[fullest],
+                       ts[fullest + 1]).to(torch.int32), fullest
+
+
+def k2_stages(pd, ts_one, fullest, ct, fwd, grid_x):
+    """One K2 launch on the fullest tile alone with the kernel's stage
+    clocks: per (tile, 32-pixel group) unit of that tile, the cycles it ran
+    and the share of them each stage's warps spent working (the rest they
+    waited at the step's barrier); the stage near 1 sets the pace."""
+    from gsavatar_torch.ops.rasterizer import composite as K
+    n_tiles = ts_one.shape[0] - 1
+    cyc = torch.zeros((n_tiles * K.BWD_GROUPS, K.BWD_WARPS, 2),
+                      dtype=torch.int64, device=pd.device)
+    K.composite_pairs_bwd(pd, ts_one, ct, fwd, grid_x, stage_cycles=cyc)
+    torch.cuda.synchronize()
+    units = cyc[fullest * K.BWD_GROUPS:(fullest + 1) * K.BWD_GROUPS].cpu()
+    n_lanes = (K.BWD_WARPS - 1) // 2
+    rows = []
+    for g, u in enumerate(units.tolist()):
+        total = max(w[1] for w in u)
+        busy = [w[0] / max(total, 1) for w in u]
+        rows.append((g, total, busy[0], max(busy[1:1 + n_lanes]),
+                     max(busy[1 + n_lanes:])))
+    for g, total, chain, ev, gr in rows:
+        log(f"K2 fullest tile, unit {g}: {total} cycles; busy share chain "
+            f"{chain:.3f}, evaluate {ev:.3f}, gradient {gr:.3f}")
+    g, total, chain, ev, gr = max(rows, key=lambda r: r[1])
+    pace = max((('chain', chain), ('evaluate', ev), ('gradient', gr)),
+               key=lambda x: x[1])[0]
+    log(f"K2 fullest tile: the longest unit ({g}, {total} cycles) is paced "
+        f"by the {pace} stage")
+    return pace
 
 
 def k2_record(args, launches):
     from gsavatar_torch.ops.rasterizer import composite as K
     pd, ts, ct, fwd, grid_x = args
     got = K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x)
+    again = K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x)
     want = K.composite_pairs_bwd_plain(pd, ts, ct, fwd, grid_x)
     scale = K.composite_pairs_bwd_scale(pd, ts, ct, fwd, grid_x)
     torch.cuda.synchronize()
@@ -607,6 +724,12 @@ def k2_record(args, launches):
     max_err = float(err.max())
     worst = float((err / scale.clamp_min(1e-30)).max())
     n_off = int((err > K2_TOL * scale).sum())
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        n_diff = int((got.view(torch.int32) != again.view(torch.int32)).sum())
+        fail(f"K2 gives other bits on a second launch: {n_diff} values "
+             f"differ")
+    if got[:, 9:].any():
+        fail("K2 wrote columns 9-11")
     log(f"K2 vs plain on {pd.shape[0]} pairs: max abs err {max_err:.3e}, "
         f"worst err / own scale {worst:.3e}, {n_off} values off (tolerance "
         f"{K2_TOL:g} of each value's scale); largest |grad| "
@@ -623,7 +746,11 @@ def k2_record(args, launches):
     ms = timed(lambda: K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x), 100)
     plain_ms = timed(lambda: K.composite_pairs_bwd_plain(pd, ts, ct, fwd,
                                                          grid_x), 2)
-    walked, evaluated, included, _ = k1_work(pd, ts, grid_x)
+    ts_one, fullest = fullest_tile_only(ts)
+    alone_ms = timed(lambda: K.composite_pairs_bwd(pd, ts_one, ct, fwd,
+                                                   grid_x), 100)
+    pace = k2_stages(pd, ts_one, fullest, ct, fwd, grid_x)
+    walked, evaluated, included, fullest_walked = k1_work(pd, ts, grid_x)
     # f32 operations: the forward's 12 per walked and 4 per evaluated
     # (pair, pixel), and per included one about 54 (T, w, the colour
     # prefixes, dL/dalpha, the nine terms) plus the 9 adds that sum them
@@ -635,10 +762,17 @@ def k2_record(args, launches):
     nbytes = pairs_bytes(pd, ts) + n_tiles * (5 + 4) * 256 * 4 \
         + pd.shape[0] * LIVE_COLS * 4
     b_ms, b_by, t_bytes, t_ops = bound(nbytes, ops)
+    per_tile = torch.diff(ts)
     log(f"K2 work: {walked} (pair, pixel) walked, {evaluated} evaluated, "
-        f"{included} included; {ops} f32 ops, {nbytes} bytes")
+        f"{included} included; {ops} f32 ops, {nbytes} bytes; "
+        f"{fullest_walked} (pair, pixel) walked in the fullest tile "
+        f"({int(per_tile.max())} pairs x 256 pixels = "
+        f"{int(per_tile.max()) * 256}); two launches bit-equal")
     log(f"K2 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-        f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+        f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}); the fullest tile "
+        f"alone {alone_ms:.4f} ms, paced by the {pace} stage; the "
+        f"one-CTA-per-tile design {K2_ONE_CTA_MS} ms on a step of this "
+        f"shape, target <= {K2_TARGET_MS} ms")
     return {
         'name': 'composite_bwd', 'route': 'cuda',
         'source': 'gsavatar_torch/csrc/composite_bwd.cu',

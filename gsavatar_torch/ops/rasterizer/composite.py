@@ -30,6 +30,11 @@ OUT_ROWS = 8
 MIN_ALPHA = 1.0 / 255.0
 MAX_ALPHA = 0.99
 T_STOP = 1e-4
+# K2's work units per tile (32-pixel groups), the warps of a unit (a chain
+# warp, three evaluating, three gradient) and the live gradient columns
+BWD_GROUPS = 8
+BWD_WARPS = 7
+BWD_GRADS = 9
 
 
 def pixel_coords(num_tiles: int, grid_x: int, device):
@@ -227,10 +232,17 @@ def composite_pairs_bwd_scale(pair_data, tile_start, ct, fwd, grid_x: int):
     return scale
 
 
-def composite_pairs_bwd(pair_data, tile_start, ct, fwd, grid_x: int):
+def composite_pairs_bwd(pair_data, tile_start, ct, fwd, grid_x: int,
+                        stage_cycles=None):
     """pair_data (P, 12) f32, tile_start (num_tiles + 1,) int32, ct and fwd
     (num_tiles, 8, 256) f32 -> (P, 12) f32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise.
+
+    `stage_cycles`, for measurement only: a zeroed int64 CUDA tensor
+    (num_tiles * BWD_GROUPS, BWD_WARPS, 2) that receives, per (tile,
+    32-pixel group) unit and warp, the cycles the warp spent in its stage
+    and the cycles the unit ran (warp 0 the chain, then the evaluating,
+    then the gradient warps; untouched for empty tiles)."""
     if pair_data.device.type == 'cpu':
         return composite_pairs_bwd_plain(pair_data, tile_start, ct, fwd,
                                          grid_x)
@@ -244,17 +256,32 @@ def composite_pairs_bwd(pair_data, tile_start, ct, fwd, grid_x: int):
                              f"({num_tiles}, {OUT_ROWS}, {P_PIX}) on "
                              f"{pair_data.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
+    clocks = 0
+    if stage_cycles is not None:
+        if stage_cycles.device != pair_data.device \
+                or stage_cycles.dtype != torch.int64 \
+                or tuple(stage_cycles.shape) != (num_tiles * BWD_GROUPS,
+                                                 BWD_WARPS, 2) \
+                or not stage_cycles.is_contiguous():
+            raise ValueError("stage_cycles must be contiguous int64 "
+                             f"({num_tiles * BWD_GROUPS}, {BWD_WARPS}, 2)")
+        clocks = stage_cycles.data_ptr()
     from gsavatar_torch import kernels
     lib = kernels.load('composite_bwd')
-    lib.gs_composite_bwd.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gs_composite_bwd.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     lib.gs_composite_bwd.restype = ctypes.c_int
-    # zero-filled: the kernel leaves the rows after a tile's early exit
-    grad = torch.zeros_like(pair_data)
+    num_pairs = pair_data.shape[0]
+    # each (tile, 32-pixel group) unit's partial sums of its tile's rows,
+    # which a second kernel adds in group order into every row of grad
+    partial = torch.empty(BWD_GROUPS * num_pairs * BWD_GRADS,
+                          dtype=torch.float32, device=pair_data.device)
+    grad = torch.empty_like(pair_data)
     stream = torch.cuda.current_stream(pair_data.device).cuda_stream
-    err = lib.gs_composite_bwd(pair_data.data_ptr(), tile_start.data_ptr(),
-                               ct.data_ptr(), fwd.data_ptr(), grad.data_ptr(),
-                               num_tiles, grid_x, stream)
+    err = lib.gs_composite_bwd(
+        pair_data.data_ptr(), tile_start.data_ptr(), ct.data_ptr(),
+        fwd.data_ptr(), partial.data_ptr(), grad.data_ptr(),
+        num_pairs, num_tiles, grid_x, clocks, stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
     composite_pairs_bwd.launches += 1

@@ -34,10 +34,11 @@ WIDTHS = (2, 3, 6, 9)
 
 def segment_sum_sorted_blocked_plain(values, seg_ids, num_segments: int):
     """Plain PyTorch K3: differences of a float64 running sum at each
-    segment's end."""
+    segment's end. The running sum starts from a zero row, as the JAX
+    function pads it, so that M = 0 rows give zeros."""
     keep = (seg_ids < num_segments)[:, None]
     v = torch.where(keep, values.double(), 0.0)
-    csum = torch.cat([torch.zeros_like(v[:1]), torch.cumsum(v, dim=0)])
+    csum = torch.cat([v.new_zeros((1, v.shape[1])), torch.cumsum(v, dim=0)])
     end = torch.searchsorted(
         seg_ids, torch.arange(num_segments, dtype=seg_ids.dtype,
                               device=seg_ids.device), side='right')

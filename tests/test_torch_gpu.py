@@ -88,17 +88,14 @@ def test_k1_kernel_matches_plain(cuda, n, seed, scale):
         assert float(got[:, 4].min()) < 1e-3
 
 
-def test_k1_heavy_tile_among_light_tiles(cuda):
-    """A 4 x 4 tile frame whose tile 5 holds 12,000 pairs, the others up to
-    40: the heavy tile is walked by eight (tile, 32-pixel group) units in
-    batches. Faint splats (opacity under 0.012) cover the heavy tile, and
-    every 40th is an opaque one on its lowest four pixel rows, so pixels
-    there stop while the others walk every pair. Alpha and final_T equal
-    the plain version's exactly, colour within 1e-5."""
-    rng = np.random.default_rng(7)
-    grid, heavy = 4, 5
+def _heavy_frame(device, seed=7, grid=4, heavy=5, n_heavy=12000):
+    """A grid x grid tile frame whose tile `heavy` holds n_heavy pairs, the
+    others up to 40. Faint splats (opacity under 0.012) cover the heavy
+    tile, and every 40th is an opaque one on its lowest four pixel rows, so
+    pixels there stop while the others walk every pair."""
+    rng = np.random.default_rng(seed)
     counts = rng.integers(0, 41, size=grid * grid)
-    counts[heavy] = 12000
+    counts[heavy] = n_heavy
     rows = []
     for t, n in enumerate(counts):
         x0, y0 = (t % grid) * 16, (t // grid) * 16
@@ -115,9 +112,18 @@ def test_k1_heavy_tile_among_light_tiles(cuda):
         rows.append(np.concatenate([m2d, conic, rng.random((n, 3)),
                                     opac[:, None], np.zeros((n, 3))], 1))
     pd = torch.as_tensor(np.concatenate(rows).astype(np.float32),
-                         device=cuda)
+                         device=device)
     ts = torch.as_tensor(np.r_[0, np.cumsum(counts)].astype(np.int32),
-                         device=cuda)
+                         device=device)
+    return pd, ts
+
+
+def test_k1_heavy_tile_among_light_tiles(cuda):
+    """`_heavy_frame`: the heavy tile is walked by eight (tile, 32-pixel
+    group) units in batches, some of whose pixels stop. Alpha and final_T
+    equal the plain version's exactly, colour within 1e-5."""
+    grid, heavy = 4, 5
+    pd, ts = _heavy_frame(cuda, grid=grid, heavy=heavy)
     before = composite.composite_pairs_fwd.launches
     got = composite.composite_pairs_fwd(pd, ts, grid)
     torch.cuda.synchronize()
@@ -173,26 +179,110 @@ def test_render_on_the_card_matches_the_cpu(cuda):
         assert float((d > 1e-2).double().mean()) < 1e-3
 
 
+def _k2_holds(pd, ts, ct, fwd, grid):
+    """K2 launched twice on one input: one count per launch, every value
+    within 1e-4 of its own scale of the plain version, columns 9-11 zero,
+    the same bits both times."""
+    bwd = composite.composite_pairs_bwd
+    before = bwd.launches
+    got = bwd(pd, ts, ct, fwd, grid)
+    again = bwd(pd, ts, ct, fwd, grid)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 2
+    want = composite.composite_pairs_bwd_plain(pd, ts, ct, fwd, grid)
+    scale = composite.composite_pairs_bwd_scale(pd, ts, ct, fwd, grid)
+    assert got.shape == pd.shape and bool(got.isfinite().all())
+    assert not got[:, 9:].any()
+    assert bool(((got - want).abs() <= 1e-4 * scale).all())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got, want
+
+
+def _cotangent(fwd, seed):
+    return torch.rand(fwd.shape, device=fwd.device,
+                      generator=torch.Generator(fwd.device).manual_seed(
+                          seed)) - 0.5
+
+
 @pytest.mark.parametrize('n,seed,scale', [(200, 0, 0.05), (3000, 1, 0.08)],
                          ids=['sparse', 'saturating'])
 def test_k2_kernel_matches_plain(cuda, n, seed, scale):
     pa = _pairs(n, seed, scale, cuda)
     fwd = composite.composite_pairs_fwd(pa.pair_data, pa.tile_start, GRID)
-    ct = torch.rand(fwd.shape, device=cuda,
-                    generator=torch.Generator(cuda).manual_seed(seed)) - 0.5
-    before = composite.composite_pairs_bwd.launches
-    got = composite.composite_pairs_bwd(pa.pair_data, pa.tile_start, ct, fwd,
-                                        GRID)
-    torch.cuda.synchronize()
-    assert composite.composite_pairs_bwd.launches == before + 1
-    want = composite.composite_pairs_bwd_plain(pa.pair_data, pa.tile_start,
-                                               ct, fwd, GRID)
-    assert got.shape == pa.pair_data.shape
-    assert not got[:, 9:].any()
-    scale = composite.composite_pairs_bwd_scale(pa.pair_data, pa.tile_start,
-                                                ct, fwd, GRID)
-    assert bool(((got - want).abs() <= 1e-4 * scale).all())
+    _, want = _k2_holds(pa.pair_data, pa.tile_start, _cotangent(fwd, seed),
+                        fwd, GRID)
     assert float(want[:, :9].abs().amax(0).min()) > 0.0
+
+
+def test_k2_heavy_tile_among_light_tiles(cuda):
+    """`_heavy_frame`'s 12,000-pair tile: the units of its lowest pixel
+    rows stop while the others walk every pair, so the eight partial rows
+    of a pair row end at different rows."""
+    grid, heavy = 4, 5
+    pd, ts = _heavy_frame(cuda, grid=grid, heavy=heavy)
+    fwd = composite.composite_pairs_fwd(pd, ts, grid)
+    got, _ = _k2_holds(pd, ts, _cotangent(fwd, 5), fwd, grid)
+    # the (tile, 32-pixel group) units all of whose pixels stop
+    d = pd[int(ts[heavy]):int(ts[heavy + 1])]
+    px, py = composite.pixel_coords(grid * grid, grid, cuda)
+    dx, dy = d[:, 0:1] - px[heavy], d[:, 1:2] - py[heavy]
+    power = -0.5 * (d[:, 2:3] * dx * dx + d[:, 4:5] * dy * dy) \
+        - d[:, 3:4] * dx * dy
+    alpha = torch.clamp_max(d[:, 8:9] * torch.exp(power), 0.99)
+    skip = (power > 0.0) | (alpha < 1.0 / 255.0)
+    T_after = torch.cumprod(1.0 - torch.where(skip, 0.0, alpha), dim=0)
+    stopped = (~skip & (T_after < 1e-4)).any(0).view(8, 32).all(1)
+    assert bool(stopped.any()) and not bool(stopped.all())
+    assert bool(got[int(ts[heavy]):int(ts[heavy + 1]), :9].any())
+
+
+def _opaque_cover(device, n=3000):
+    """One tile of n pairs led by two opaque splats that cover it (alpha
+    clamped to 0.99 at every pixel: T = 0.01, then under 1e-4), so every
+    pixel includes the first and stops at the second, the earliest a pixel
+    can stop; faint splats follow."""
+    rng = np.random.default_rng(3)
+    rows = np.zeros((n, 12), np.float32)
+    rows[:, 0:2] = 8.0 + rng.uniform(-6, 6, (n, 2))
+    rows[:, 2] = rows[:, 4] = 0.3
+    rows[:, 5:8] = rng.random((n, 3))
+    rows[:, 8] = 0.05
+    rows[:2, 2] = rows[:2, 4] = 1e-6
+    rows[:2, 8] = 1.0
+    return (torch.as_tensor(rows, device=device),
+            torch.tensor([0, n], dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize('case', ['no_pairs', 'empty_tiles', 'opaque_cover'])
+def test_k2_edge_cases(cuda, case):
+    """P = 0 (every tile empty); a frame with empty tiles between full
+    ones; a tile whose every pixel stops at its second pair, so the kernel
+    leaves all later rows to the zeros past each unit's stop."""
+    grid = 4
+    if case == 'no_pairs':
+        pd = torch.zeros((0, 12), device=cuda)
+        ts = torch.zeros(grid * grid + 1, dtype=torch.int32, device=cuda)
+    elif case == 'empty_tiles':
+        pd, ts = _heavy_frame(cuda, seed=11, grid=grid, heavy=9,
+                              n_heavy=500)
+        counts = torch.diff(ts)
+        tile = torch.repeat_interleave(
+            torch.arange(grid * grid, device=cuda), counts)
+        pd = pd[tile % 3 != 0].contiguous()
+        counts[::3] = 0
+        ts = torch.cat([ts[:1], torch.cumsum(counts, 0)]).to(torch.int32)
+    else:
+        grid = 1
+        pd, ts = _opaque_cover(cuda)
+    fwd = composite.composite_pairs_fwd(pd, ts, grid)
+    got, want = _k2_holds(pd, ts, _cotangent(fwd, 1), fwd, grid)
+    if case == 'no_pairs':
+        assert got.shape == (0, 12)
+    elif case == 'empty_tiles':
+        assert int((torch.diff(ts) == 0).sum()) >= grid * grid // 3
+    else:
+        assert bool(want[0, 5:8].all()) and not want[1:].any()
+        assert not got[1:].any()
 
 
 def _k3_holds(values, ids, S):
@@ -204,15 +294,11 @@ def _k3_holds(values, ids, S):
     again = k3(values, ids, S)
     torch.cuda.synchronize()
     assert k3.launches == before + 2
-    if values.shape[0]:
-        plain = segsum_blocked.segment_sum_sorted_blocked_plain
-        want = plain(values, ids, S)
-        mag = plain(values.abs(), ids, S)
-        floor = 4 * torch.finfo(torch.float64).eps * float(
-            values.nan_to_num(0.0).double().abs().sum(0).max())
-    else:     # the plain version indexes an empty running sum at M = 0
-        want = mag = torch.zeros_like(got)
-        floor = 0.0
+    plain = segsum_blocked.segment_sum_sorted_blocked_plain
+    want = plain(values, ids, S)
+    mag = plain(values.abs(), ids, S)
+    floor = 4 * torch.finfo(torch.float64).eps * float(
+        values.nan_to_num(0.0).double().abs().sum(0).max())
     assert got.shape == (S, values.shape[1]) and bool(got.isfinite().all())
     assert bool(((got - want).abs() <= 1e-5 * mag + floor).all())
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
@@ -309,6 +395,10 @@ def test_k2_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
         bwd(pd, ts, ct, ct.transpose(1, 2).contiguous().transpose(1, 2), 1)
     with pytest.raises(ValueError):
         bwd(pd, ts, ct.cpu(), ct, 1)
+    for cycles in (torch.zeros((8, 7, 2), dtype=torch.int32, device=cuda),
+                   torch.zeros((1, 7, 2), dtype=torch.int64, device=cuda)):
+        with pytest.raises(ValueError):
+            bwd(pd, ts, ct, ct, 1, stage_cycles=cycles)
     k3 = segsum_blocked.segment_sum_sorted_blocked
     v = torch.zeros((10, 2), device=cuda)
     ids = torch.zeros(10, dtype=torch.int32, device=cuda)

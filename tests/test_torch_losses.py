@@ -100,6 +100,34 @@ def test_conv2d_f32_matches_conv2d(kw):
     assert torch.backends.cudnn.allow_tf32 == flag  # the caller's, restored
 
 
+def test_conv2d_f32_holds_cudnn_to_f32_and_deterministic(monkeypatch):
+    """Both passes run with cuDNN's TF32 off and its deterministic
+    algorithms on (the backward's default algorithms sum in a run-dependent
+    order on the card), and the caller's flags come back after each."""
+    from gsavatar_torch.ops import conv
+    cudnn = torch.backends.cudnn
+    seen = []
+    fwd, bwd = torch.nn.functional.conv2d, torch.ops.aten.convolution_backward
+
+    def record(fn):
+        def wrapped(*a, **k):
+            seen.append((cudnn.allow_tf32, cudnn.deterministic))
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(conv.F, 'conv2d', record(fwd))
+    monkeypatch.setattr(conv.torch.ops.aten, 'convolution_backward',
+                        record(bwd), raising=False)
+    before = cudnn.allow_tf32, cudnn.deterministic
+    x = torch.randn((1, 3, 9, 9), requires_grad=True)
+    w = torch.randn((4, 3, 3, 3), requires_grad=True)
+    y = conv.conv2d_f32(x, w, padding=1)
+    assert (cudnn.allow_tf32, cudnn.deterministic) == before
+    torch.autograd.grad(y.sum(), (x, w))
+    assert seen == [(False, True), (False, True)]
+    assert (cudnn.allow_tf32, cudnn.deterministic) == before
+
+
 @pytest.mark.parametrize('name', ['l1', 'mask_l1', 'mask_bce', 'psnr',
                                   'opacity_entropy'])
 def test_image_and_opacity_terms(name):

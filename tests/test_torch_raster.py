@@ -29,8 +29,9 @@ from torch_parity import assert_render_gates, close
 from gsavatar_torch.ops.rasterizer import RasterizeConfig as TConfig
 from gsavatar_torch.ops.rasterizer import rasterize as t_rasterize
 from gsavatar_torch.ops.rasterizer.composite import (
-    composite_pairs_bwd, composite_pairs_bwd_scale, composite_pairs_fwd,
-    composite_pairs_fwd_plain)
+    MAX_ALPHA, MIN_ALPHA, T_STOP, _walk, composite_pairs_bwd,
+    composite_pairs_bwd_plain, composite_pairs_bwd_scale, composite_pairs_fwd,
+    composite_pairs_fwd_plain, pixel_coords)
 from gsavatar_torch.ops.rasterizer.pairs import build_pairs as t_build_pairs
 from gsavatar_torch.ops.rasterizer.project import project as t_project
 
@@ -168,6 +169,126 @@ def test_k2_row_scale_bounds_the_gradient(n, seed):
         jnp.asarray(fwd.numpy()), num_tiles=GRID * GRID, grid_x=GRID,
         chunk=chunk, interpret=True))[:pa.n_pairs, :12]
     assert (np.abs(got - want) <= 1e-5 * scale).all()
+
+
+K2_SCENES = pytest.mark.parametrize(
+    'n,seed,scale', [(200, 0, 0.05), (3000, 1, 0.08)],
+    ids=['sparse', 'saturating'])
+
+
+def _k2_inputs(n, seed, scale):
+    """Pair arrays of a random scene, K1's output on them and a random
+    cotangent."""
+    means, colors, opac, cov = _scene(n, seed, scale)
+    _, tp = _projections(means, cov, _camera())
+    pa = t_build_pairs(tp, torch.from_numpy(colors), torch.from_numpy(opac),
+                       GRID, GRID, 2 ** 15)
+    assert pa.n_pairs > 0 and pa.pair_overflow == 0
+    fwd = composite_pairs_fwd(pa.pair_data, pa.tile_start, GRID)
+    ct = np.random.default_rng(seed).uniform(
+        -1.0, 1.0, (GRID * GRID, 8, 256)).astype(np.float32)
+    return pa.pair_data, pa.tile_start, torch.from_numpy(ct), fwd
+
+
+def _k2_kernel_model(pd, ts, ct, fwd, grid_x, batch=None):
+    """csrc/composite_bwd.cu's arithmetic in torch, in pd's dtype.
+    dL/dalpha_k = T_k (ct.c_k) - (K - Q_k) / max(1 - alpha_k, 1e-6) with
+    Q_k = sum_{j<=k} w_j (ct.c_j) and K = ct.acc_out + dT_end final_T; the
+    power gradient as sums over the pixels of d_power times 1, dx, dy, dx^2,
+    dx dy, dy^2, times the conic at the end. Each (tile, 32-pixel group)
+    unit sums its own pixels; the eight units' rows are added in group
+    order. With `batch`, a unit's rows after the batch in which all its 32
+    pixels have stopped are set to zero, as the kernel leaves them. Returns
+    (grad, rows set to zero, nonzero values those zeros replaced)."""
+    num_tiles = ts.shape[0] - 1
+    px, py = pixel_coords(num_tiles, grid_x, pd.device)
+    partial = torch.zeros((8,) + tuple(pd.shape), dtype=pd.dtype)
+    bounds = ts.tolist()
+    zeroed = lost = 0
+    for t in range(num_tiles):
+        s, e = bounds[t], bounds[t + 1]
+        if e <= s:
+            continue
+        d = pd[s:e]
+        con_a, con_b, con_c = d[:, 2], d[:, 3], d[:, 4]
+        dx, dy, alpha, T_before, include = _walk(d, px[t], py[t])
+        power = -0.5 * (d[:, 2:3] * dx * dx + d[:, 4:5] * dy * dy) \
+            - d[:, 3:4] * dx * dy
+        skip = (power > 0.0) | (alpha < MIN_ALPHA)
+        T_after = torch.cumprod(1.0 - torch.where(skip, 0.0, alpha), dim=0)
+        stops = ~skip & (T_after < T_STOP)
+        w = torch.where(include, alpha * T_before, 0.0)
+        ct_rgb = ct[t, 0:3]
+        ctc = d[:, 5:8] @ ct_rgb
+        Q = torch.cumsum(w * ctc, dim=0)
+        K = (ct_rgb * fwd[t, 0:3]).sum(0) + (ct[t, 4] - ct[t, 3]) * fwd[t, 4]
+        one_m = torch.clamp_min(1.0 - alpha, 1e-6)
+        d_alpha = torch.where(include, T_before * ctc - (K[None] - Q) / one_m,
+                              0.0)
+        dp = torch.where(alpha < MAX_ALPHA, d_alpha * alpha, 0.0)
+        terms = torch.stack([dp, dp * dx, dp * dy, dp * dx * dx, dp * dx * dy,
+                             dp * dy * dy, w * ct_rgb[0], w * ct_rgb[1],
+                             w * ct_rgb[2]], dim=-1)          # (n, 256, 9)
+        for g in range(8):
+            cols = slice(32 * g, 32 * g + 32)
+            part = terms[:, cols].sum(1)
+            st = stops[:, cols]
+            if batch is not None and bool(st.any(0).all()):
+                # the latest of the 32 pixels' first stopping pair
+                last = int(st.int().argmax(0).max())
+                live = (last // batch + 1) * batch
+                zeroed += max(e - s - live, 0)
+                lost += int(part[live:].ne(0).sum())
+                part[live:] = 0.0
+            out = partial[g, s:e]
+            out[:, 0] = -(con_a * part[:, 1]) - con_b * part[:, 2]
+            out[:, 1] = -(con_c * part[:, 2]) - con_b * part[:, 1]
+            out[:, 2] = -0.5 * part[:, 3]
+            out[:, 3] = -part[:, 4]
+            out[:, 4] = -0.5 * part[:, 5]
+            out[:, 5:8] = part[:, 6:9]
+            out[:, 8] = torch.where(part[:, 0] != 0, part[:, 0] / d[:, 8],
+                                    0.0)
+    grad = partial[0]
+    for g in range(1, 8):
+        grad = grad + partial[g]
+    return grad, zeroed, lost
+
+
+@K2_SCENES
+def test_k2_q_form_matches_plain_in_float64(n, seed, scale):
+    """The identity the kernel relies on: the three colour prefixes enter
+    dL/dalpha only through Q_k. In float64, the kernel's form (Q_k, K, the
+    factored power sums, the units' rows added in order) equals
+    `composite_pairs_bwd_plain`'s per-channel form within 1e-12 of each
+    value's own scale."""
+    args = [x.double() if x.is_floating_point() else x
+            for x in _k2_inputs(n, seed, scale)]
+    got, _, _ = _k2_kernel_model(*args, GRID)
+    want = composite_pairs_bwd_plain(*args, GRID)
+    scale = composite_pairs_bwd_scale(*args, GRID)
+    assert want.dtype == torch.float64
+    assert bool(((got - want).abs() <= 1e-12 * scale).all())
+    assert float(want[:, :9].abs().amax(0).min()) > 0.0
+
+
+@pytest.mark.parametrize('batch', [96, 8])
+@K2_SCENES
+def test_k2_kernel_model_matches_plain(n, seed, scale, batch):
+    """The kernel's partition in f32: per (tile, 32-pixel group) unit, the
+    rows after the batch in which every pixel of the unit stopped are left
+    zero. Those rows hold nothing (no pixel of the unit includes them), and
+    the result is within K2's on-card tolerance (1e-4 of each value's
+    scale) of the plain version. The saturating scene stops units early."""
+    args = _k2_inputs(n, seed, scale)
+    got, zeroed, lost = _k2_kernel_model(*args, GRID, batch=batch)
+    want = composite_pairs_bwd_plain(*args, GRID)
+    scale = composite_pairs_bwd_scale(*args, GRID)
+    assert lost == 0
+    assert bool(((got - want).abs() <= 1e-4 * scale).all())
+    assert not got[:, 9:].any()
+    if seed == 1:
+        assert zeroed > 0
 
 
 def _grad_gate(got, want, name):

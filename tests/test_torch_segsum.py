@@ -78,6 +78,23 @@ def test_plain_k3_matches_cumsum_formulation(M, C, S):
                                atol=_cumsum_atol(vals))
 
 
+@pytest.mark.parametrize('S', [0, 5])
+@pytest.mark.parametrize('C', [2, 9])
+def test_plain_k3_without_rows_gives_zeros(S, C):
+    """M = 0 rows: the JAX cumsum formulation pads its running sum with a
+    zero row and returns zeros; so does the plain version (it indexed an
+    empty running sum before)."""
+    vals = np.zeros((0, C), np.float32)
+    ids = np.zeros(0, np.int32)
+    got = segment_sum_sorted_blocked_plain(torch.from_numpy(vals),
+                                           torch.from_numpy(ids), S)
+    want = np.asarray(jseg.segment_sum_sorted(jnp.asarray(vals),
+                                              jnp.asarray(ids), S))
+    assert got.shape == want.shape == (S, C) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got.any()
+
+
 def test_k3_wrapper_takes_plain_version_only_for_cpu_tensors():
     ids, vals = _sorted_input(400, 2, 100, seed=3)
     before = segment_sum_sorted_blocked.launches
