@@ -54,12 +54,25 @@ them. Phases, any failure ends the run with a non-zero exit:
 10. K4, the narrow-row probe: its entry point (`tools.profile_narrow_dma.
    main`) with the launch count set to 0 just before and read just after,
    then the kernel against its plain version at P = 2^21 with its time,
-   the plain version's, `torch.sum`'s and the bound.
+   the plain version's, `torch.sum`'s and the bound;
+11. the real-format data path: the port's JPEG decode, PNG read,
+   undistortion and resize of the committed fixture frames
+   (tests/fixtures/torch_frames) held to the SHA-256 digests of OpenCV's
+   and the JAX package's results, bit for bit; the host's decode time and
+   the device's undistort and resize time per frame; then a ZJU-MoCap tree
+   under build/ (views 1 and 2 training, 5 testing, 4 frames each, SMPL
+   fits from the port's LBS) trained at 512x512 with 50,000 points for 30
+   steps of `make_train_step` (launch counts set to 0 just before and read
+   just after: K1 30, K2 30, K3 180), its test split evaluated with saved
+   frames that decode back equal; then a PeopleSnapshot tree at 1080^2 ->
+   540^2 trained 10 steps, scored by `PSEvaluator` (LPIPS-Alex) and its
+   rotating_models predict split rendered.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -1170,6 +1183,379 @@ def k4_phase(counters):
     }
 
 
+# phase 11: the real-format data path. The frames come from
+# tests/fixtures/torch_frames (the card has no JPEG or PNG writer); their
+# digests.json holds OpenCV's decode and the JAX package's frame path at
+# the published sizes, which the port must equal bit for bit
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                        'fixtures', 'torch_frames')
+REAL_FRAMES = 4          # frames per view in the trees
+ZJU_STEPS = 30
+PS_STEPS = 10
+DECODE_REPS = 5
+# the ZJU tree's cameras: views 1 and 2 train, view 5 tests; each looks at
+# the body from 2.5 m, upright, from its own angle about the vertical
+ZJU_VIEWS = {'1': 0.0, '2': 0.8, '5': 2.4}
+
+
+def _sha(x) -> str:
+    import numpy as np
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def frame_digests(device):
+    """(label, wanted digest, the port's digest) for each fixture frame:
+    the decode, the mask's grey read, and `load_image_mask`'s frame and
+    mask on `device` at the published size on both backgrounds."""
+    import numpy as np
+    from gsavatar_torch import native
+    from gsavatar_torch.data import zju_format
+    with open(os.path.join(FIXTURES, 'digests.json')) as f:
+        spec = json.load(f)
+    out = []
+    for name, rec in spec.items():
+        jpg = os.path.join(FIXTURES, rec['jpeg'])
+        png = os.path.join(FIXTURES, rec['mask'])
+        out.append((f"{name} decode", rec['decoded_sha256'],
+                    _sha(native.read_jpeg(jpg))))
+        out.append((f"{name} mask read", rec['mask_gray_sha256'],
+                    _sha(zju_format.read_image(png, 'gray'))))
+        for bg in ('black', 'white'):
+            img, msk = zju_format.load_image_mask(
+                jpg, png, np.array(rec['K'], np.float32),
+                np.array(rec['D'], np.float32), (rec['out'], rec['out']),
+                bg == 'white', device=device)
+            out.append((f"{name} {bg} frame", rec[bg]['image_sha256'],
+                        _sha(img)))
+            out.append((f"{name} {bg} mask", rec[bg]['mask_sha256'],
+                        _sha(msk)))
+    return out
+
+
+def _smpl_fit(assets, pose, trans):
+    import numpy as np
+    from gsavatar_torch.smpl import lbs
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    res = lbs.lbs(torch.zeros((1, 10)), t(pose)[None],
+                  t(assets.v_template)[None], t(assets.shapedirs),
+                  t(assets.posedirs), t(assets.J_regressor), assets.parents,
+                  t(assets.skinning_weights))
+    return {'minimal_shape': assets.v_template,
+            'betas': np.zeros(10, np.float32),
+            'bone_transforms': res[3][0].numpy(),
+            'trans': np.asarray(trans, np.float32),
+            'root_orient': pose[:3], 'pose_body': pose[3:66],
+            'pose_hand': pose[66:72]}
+
+
+def _poses(n, root_orient):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    out = []
+    for _ in range(n):
+        p = (0.1 * rng.standard_normal(72)).astype(np.float32)
+        p[:3] = root_orient
+        out.append(p)
+    return out
+
+
+def build_zju_tree(root):
+    """ZJU-MoCap layout: subject S1, views 1 and 2 (training) and 5
+    (test), REAL_FRAMES frames each (the 1024^2 fixture frame), SMPL fits
+    of the synthetic body from the port's LBS, and cam_params.json."""
+    import numpy as np
+    from gsavatar_torch.smpl.body_model import find_assets
+    with open(os.path.join(FIXTURES, 'digests.json')) as f:
+        rec = json.load(f)['zju']
+    assets = find_assets(None, 'neutral')
+    subj = os.path.join(root, 'S1')
+    os.makedirs(os.path.join(subj, 'models'))
+    for f, pose in enumerate(_poses(REAL_FRAMES, 0.0)):
+        np.savez(os.path.join(subj, 'models', f'{f:06d}.npz'),
+                 **_smpl_fit(assets, pose, [0.0, 0.0, 0.0]))
+    cams = {}
+    flip = np.diag([1.0, -1.0, -1.0])       # y down, looking along -z
+    for view, ang in ZJU_VIEWS.items():
+        os.makedirs(os.path.join(subj, view))
+        for f in range(REAL_FRAMES):
+            for src, ext in ((rec['jpeg'], 'jpg'), (rec['mask'], 'png')):
+                shutil.copy(os.path.join(FIXTURES, src),
+                            os.path.join(subj, view, f'{f:06d}.{ext}'))
+        c, s = math.cos(ang), math.sin(ang)
+        R = flip @ np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        cams[view] = {'K': rec['K'], 'D': rec['D'], 'R': R.tolist(),
+                      'T': [[0.0], [0.0], [2.5]]}
+    with open(os.path.join(subj, 'cam_params.json'), 'w') as f:
+        json.dump(cams, f)
+    return rec
+
+
+def build_ps_tree(root):
+    """PeopleSnapshot layout: subject female-3-casual, REAL_FRAMES frames
+    (the 1080^2 fixture frame), animnerf_models, two rotating_models fits
+    for the predict split, and camera.pkl. The fits turn the body upright
+    and 3 m in front of the camera (PeopleSnapshot's extrinsics are the
+    identity)."""
+    import pickle
+    import numpy as np
+    from gsavatar_torch.smpl.body_model import find_assets
+    with open(os.path.join(FIXTURES, 'digests.json')) as f:
+        rec = json.load(f)['ps']
+    assets = find_assets(None, 'female')
+    subj = os.path.join(root, 'female-3-casual')
+    for d in ('animnerf_models', 'image', 'mask', 'rotating_models'):
+        os.makedirs(os.path.join(subj, d))
+    upright = [math.pi, 0.0, 0.0]
+    for f, pose in enumerate(_poses(REAL_FRAMES, upright)):
+        np.savez(os.path.join(subj, 'animnerf_models', f'{f:06d}.npz'),
+                 **_smpl_fit(assets, pose, [0.0, 0.0, 3.0]))
+        shutil.copy(os.path.join(FIXTURES, rec['jpeg']),
+                    os.path.join(subj, 'image', f'{f:06d}.jpg'))
+        shutil.copy(os.path.join(FIXTURES, rec['mask']),
+                    os.path.join(subj, 'mask', f'{f:06d}.png'))
+    for f, pose in enumerate(_poses(2, upright)):
+        np.savez(os.path.join(subj, 'rotating_models', f'{f:06d}.npz'),
+                 **_smpl_fit(assets, pose, [0.0, 0.0, 3.0]))
+    K = rec['K']
+    with open(os.path.join(subj, 'camera.pkl'), 'wb') as f:
+        pickle.dump({'camera_f': [K[0][0], K[1][1]],
+                     'camera_c': [K[0][2], K[1][2]],
+                     'camera_k': np.array(rec['D'], np.float32),
+                     'height': rec['raw'], 'width': rec['raw']}, f)
+    return rec
+
+
+def profiled_device_ms(fn, reps: int) -> float:
+    """Device time of `fn()` in ms per call: the sum of the device
+    activity (kernels, copies, fills) the profiler records over `reps`
+    calls, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        fail("the profiler recorded no device activity")
+    return sum(e.time_range.end - e.time_range.start
+               for e in device) / 1e3 / reps
+
+
+def data_path_times(gpu):
+    """The data path's costs: per frame, the host's decode of the frame
+    (JPEG) and its mask (PNG), and the device's part of `load_image_mask`
+    on them (undistortion on the view's kept map, resize, background,
+    /255); per view, the build of its undistortion map."""
+    import numpy as np
+    from gsavatar_torch import native
+    from gsavatar_torch.data import image_ops, zju_format
+    with open(os.path.join(FIXTURES, 'digests.json')) as f:
+        spec = json.load(f)
+    for name, rec in spec.items():
+        jpg = os.path.join(FIXTURES, rec['jpeg'])
+        png = os.path.join(FIXTURES, rec['mask'])
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            native.read_jpeg(jpg)
+        jpeg_ms = (time.perf_counter() - t0) * 1e3 / DECODE_REPS
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            rgb, gray = zju_format.read_image_mask(jpg, png)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_REPS
+        img = torch.as_tensor(rgb, device=DEVICE)
+        msk = torch.as_tensor(gray, device=DEVICE)
+        K = np.array(rec['K'], np.float32)
+        D = np.array(rec['D'], np.float32)
+        hw = (rec['out'], rec['out'])
+
+        def frame():
+            zju_format.transform_image_mask(img, msk, K, D, hw, False)
+
+        def view_map():
+            image_ops.build_undistort_map(K, D, *img.shape[:2], DEVICE)
+        dev_ms = profiled_device_ms(frame, 5)
+        host_ms = host_timed(frame, 5)
+        map_dev_ms = profiled_device_ms(view_map, 3)
+        map_host_ms = host_timed(view_map, 3)
+        log(f"data path {name} {rec['raw']}^2 -> {rec['out']}^2 ({gpu}): "
+            f"host decode {decode_ms:.2f} ms/frame (JPEG alone "
+            f"{jpeg_ms:.2f}); transform_image_mask {dev_ms:.3f} device "
+            f"ms/frame ({host_ms:.2f} ms/frame host clock, synced); the "
+            f"view's undistortion map, built once {map_dev_ms:.3f} device "
+            f"ms ({map_host_ms:.2f} ms host clock, synced)")
+
+
+def real_scene(overrides, label, gpu):
+    """A Scene of a real-format config, every training camera loaded
+    (the preload), timed."""
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.data import image_ops
+    from gsavatar_torch.scene import Scene
+    cfg = load_config(overrides)
+    # the preload builds its views' undistortion maps, as a fresh run does
+    image_ops._kept_map.cache_clear()
+    t0 = time.perf_counter()
+    scene = Scene(cfg, seed=SEED, device=DEVICE)
+    t1 = time.perf_counter()
+    cams = [scene.train_dataset[i] for i in range(len(scene.train_dataset))]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"{label} ({gpu}): scene set-up {t1 - t0:.2f} s, preload of the "
+        f"{len(cams)} training frames {t2 - t1:.2f} s "
+        f"({(t2 - t1) / len(cams) * 1e3:.1f} ms/frame), frames "
+        f"{tuple(cams[0].image.shape)} on {cams[0].image.device}")
+    return cfg, scene, cams
+
+
+def real_train(scene, cams, steps, counters, label, gpu):
+    """`steps` training steps cycling the cameras, with the kernels'
+    launch counts set to 0 just before and read just after."""
+    from gsavatar_torch.train import loss_weights, make_train_step
+    state = scene.init_state()
+    n_alive = int(state.gauss_aux.alive.sum())
+    bucket = scene.bucket_for(n_alive)
+    weights = loss_weights(scene.cfg, TRAIN_ITERATION)
+    weights['_in_densify_window'] = 1.0
+    xyz_lr = scene.xyz_lr_fn(TRAIN_ITERATION)
+    step = make_train_step(scene)
+    step_ms, metrics = [], []
+
+    def run():
+        nonlocal state
+        for i in range(steps):
+            t1 = time.perf_counter()
+            state, m = step(state, cams[i % len(cams)], TRAIN_ITERATION + i,
+                            weights, xyz_lr, active_sh_degree=0,
+                            bucket=bucket)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1000.0)
+            metrics.append({k: float(v) for k, v in m.items()})
+    _, launches = driven(counters, run)
+    later = sorted(step_ms[1:])
+    log(f"{label} training ({gpu}): {n_alive} Gaussians, {steps} steps, "
+        f"median {later[len(later) // 2]:.3f} ms/step without the first "
+        f"(first {step_ms[0]:.1f}), loss {metrics[0]['loss/total_loss']:.5f}"
+        f" -> {metrics[-1]['loss/total_loss']:.5f}, launches {launches}")
+    for i, m in enumerate(metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"{label} step {i}: non-finite {bad}")
+        if m['overflow/pairs']:
+            fail(f"{label} step {i}: pair_overflow {m['overflow/pairs']}")
+    want = {'composite_fwd': steps, 'composite_bwd': steps,
+            'segsum': K3_PER_STEP * steps, 'narrow_rows': 0}
+    if launches != want:
+        fail(f"{label} launches {launches}, expected {want}")
+    return state
+
+
+def real_evaluate(scene, state, cams, evaluator, out_dir, label):
+    """Render `cams` from the trained state through `evaluate`, saving the
+    frames (and composites): each PNG, decoded by the port, equals the
+    frame in memory; results.npz holds every metric, each finite."""
+    import numpy as np
+    from gsavatar_torch.evaluate import evaluate, to_uint8
+    from gsavatar_torch.inference import AvatarState, InferenceScene
+    from gsavatar_torch.utils import png
+    infer = InferenceScene(
+        scene.cfg, scene.metadata, scene.assets,
+        AvatarState(state.gauss_params, state.gauss_aux,
+                    scene.converter.state_dict()), device=DEVICE,
+        iteration=TRAIN_ITERATION)
+    res = evaluate(infer, cams, keep_renders=True, evaluator=evaluator,
+                   out_dir=out_dir, save_images=True, save_composite=True)
+    for cam, img in zip(cams, res['images']):
+        got = png.read_png(os.path.join(out_dir, f"{cam.image_name}.png"))
+        if not np.array_equal(got, to_uint8(img)):
+            fail(f"{label}: {cam.image_name}.png reads back different")
+        comp = png.read_png(os.path.join(
+            out_dir, f"{cam.image_name}_composite.png"))
+        if comp.shape != got.shape:
+            fail(f"{label}: {cam.image_name}_composite.png {comp.shape}")
+        if not bool(img.isfinite().all()) or not float(img.max()) > 0:
+            fail(f"{label}: {cam.image_name} renders empty or non-finite")
+    npz = np.load(os.path.join(out_dir, 'results.npz'))
+    values = {k: float(npz[k]) for k in npz.files}
+    log(f"{label}: {len(cams)} frames saved and read back, results.npz "
+        f"{values}")
+    want = {'metrics/time_ms'} | ({f'metrics/{k}' for k in res['metrics']}
+                                  if evaluator is not None else set())
+    if set(values) != want or not all(math.isfinite(v)
+                                      for v in values.values()):
+        fail(f"{label}: results.npz {values}")
+    return res
+
+
+def real_data_phase(counters, work, gpu):
+    """Phase 11: the fixture digests, then training and evaluation on a
+    ZJU-MoCap tree at 512^2 and a PeopleSnapshot tree at 540^2."""
+    from gsavatar_torch.data import load_dataset
+    from gsavatar_torch.metrics import PSEvaluator, get_evaluator
+    checks = frame_digests(DEVICE)
+    bad = [label for label, want, got in checks if want != got]
+    log(f"fixture digests: {len(checks) - len(bad)} of {len(checks)} equal "
+        f"(decode, mask read, frame and mask at 512^2 and 540^2 on black "
+        f"and white)")
+    if bad:
+        fail(f"the port's frames differ from OpenCV's: {bad}")
+    data_path_times(gpu)
+
+    zju = os.path.join(work, 'zju')
+    rec = build_zju_tree(zju)
+    cfg, scene, cams = real_scene([
+        'dataset=zjumocap_377_mono', f'dataset.root_dir={zju}',
+        'dataset.subject=S1', "dataset.train_views=['1','2']",
+        "dataset.val_views=['5']", f'dataset.train_frames=[0,{REAL_FRAMES},1]',
+        f'dataset.test_frames.view=[0,{REAL_FRAMES},1]',
+        'dataset.n_points=50000'], 'ZJU-MoCap tree', gpu)
+    if tuple(cams[0].image.shape) != (512, 512, 3):
+        fail(f"ZJU frames {tuple(cams[0].image.shape)}")
+    # a training camera's frame is the fixture's digest (K is centred)
+    if _sha(cams[0].image) != rec['black']['image_sha256']:
+        fail("the ZJU loader's frame differs from the fixture's digest")
+    state = real_train(scene, cams, ZJU_STEPS, counters, 'ZJU-MoCap', gpu)
+    test = load_dataset(cfg['dataset'], 'test', device=DEVICE)
+    test = [test[i] for i in range(len(test))]
+    if len(test) != REAL_FRAMES:
+        fail(f"ZJU test split: {len(test)} frames")
+    real_evaluate(scene, state, test, get_evaluator('zjumocap'),
+                  os.path.join(work, 'eval_zju'), 'ZJU-MoCap test split')
+
+    ps = os.path.join(work, 'ps')
+    build_ps_tree(ps)
+    cfg, scene, cams = real_scene([
+        'dataset=ps_female_3', f'dataset.root_dir={ps}',
+        f'dataset.train_frames=[0,{REAL_FRAMES},1]',
+        f'dataset.val_frames=[{REAL_FRAMES - 1},{REAL_FRAMES},1]',
+        f'dataset.test_frames.pose=[0,{REAL_FRAMES},2]',
+        'dataset.test_mode=pose', 'dataset.n_points=50000'],
+        'PeopleSnapshot tree', gpu)
+    if tuple(cams[0].image.shape) != (540, 540, 3):
+        fail(f"PeopleSnapshot frames {tuple(cams[0].image.shape)}")
+    state = real_train(scene, cams, PS_STEPS, counters, 'PeopleSnapshot',
+                       gpu)
+    test = load_dataset(cfg['dataset'], 'test', device=DEVICE)
+    test = [test[i] for i in range(len(test))]
+    evaluator = get_evaluator('people_snapshot')
+    if not isinstance(evaluator, PSEvaluator):
+        fail(f"people_snapshot's evaluator is {type(evaluator).__name__}")
+    res = real_evaluate(scene, state, test, evaluator,
+                        os.path.join(work, 'eval_ps'),
+                        'PeopleSnapshot test split (PSEvaluator, '
+                        'LPIPS-Alex)')
+    if 'lpips_rand' not in res['metrics'] and 'lpips' not in res['metrics']:
+        fail(f"PSEvaluator gave no LPIPS: {res['metrics']}")
+    predict = load_dataset(cfg['dataset'], 'predict', device=DEVICE)
+    real_evaluate(scene, state, [predict[i] for i in range(len(predict))],
+                  None, os.path.join(work, 'predict_ps'),
+                  'PeopleSnapshot rotating_models predict split')
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
@@ -1276,6 +1662,13 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records.append(k4_phase(counters))
+
+    # 11. the real-format data path; its trees and frames under build/
+    work = tempfile.mkdtemp(prefix='data-', dir=kernels.BUILD)
+    try:
+        real_data_phase(counters, work, gpu)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,10 @@
-"""Dataset helpers: canonicalization and the per-frame pose recipe.
+"""Dataset helpers: canonicalization, the per-frame pose recipe and the
+base class of the loaders.
 
-The port's own copy of the host-side parts of `gsavatar/data/base.py`."""
+The port's own copy of `gsavatar/data/base.py`."""
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 from scipy.spatial.transform import Rotation
@@ -14,6 +15,26 @@ from gsavatar_torch.utils.aabb import AABB
 
 # ZJU-MoCap's scene extent, which every dataset of the JAX package reports
 ZJU_CAMERAS_EXTENT = 3.469298553466797
+
+
+def fix_symmetry(arr: np.ndarray) -> np.ndarray:
+    """A float16 canonical shape as float32 with a 1e-4 normal jitter from
+    `default_rng(0)`, which breaks its exact symmetries; any other dtype is
+    only cast."""
+    if arr.dtype == np.float16:
+        rng = np.random.default_rng(0)
+        return arr.astype(np.float32) + 1e-4 * rng.standard_normal(arr.shape)
+    return arr.astype(np.float32)
+
+
+def padding_ratio(cfg):
+    """The AABB padding of a dataset config: a scalar, or a per-axis
+    [px, py, pz] list (zjumocap_387_mono sets one)."""
+    p = cfg.get('padding', 0.1)
+    try:
+        return np.asarray([float(v) for v in p], dtype=np.float32)
+    except TypeError:
+        return float(p)
 
 
 def canonicalize(minimal_shape: np.ndarray, assets: SMPLAssets,
@@ -35,6 +56,8 @@ def canonicalize(minimal_shape: np.ndarray, assets: SMPLAssets,
         'skinning_weights': skinning_weights.astype(np.float32),
         'bone_transforms_02v': tf_02v,
         'faces': assets.faces,
+        'coord_min': aabb.coord_min.numpy(),
+        'coord_max': aabb.coord_max.numpy(),
         'aabb': aabb,
     }
 
@@ -76,3 +99,31 @@ def frame_slice(frames_cfg: List[int], n_total: int):
     if end == 0:
         end = n_total
     return slice(start, end, step)
+
+
+class BaseDataset:
+    """An indexable dataset of camera records. With `preload` (the
+    default) each record is built once and kept; `device` is where its
+    image and mask tensors live, and without `ground_truth` it has
+    neither."""
+
+    def __init__(self, cfg: dict, split: str, device='cpu',
+                 ground_truth: bool = True):
+        self.cfg = cfg
+        self.split = split
+        self.device = device
+        self.ground_truth = ground_truth
+        self._cache: Dict[int, object] = {}
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def _get_camera(self, idx: int):
+        raise NotImplementedError
+
+    def __getitem__(self, idx: int):
+        if self.cfg.get('preload', True):
+            if idx not in self._cache:
+                self._cache[idx] = self._get_camera(idx)
+            return self._cache[idx]
+        return self._get_camera(idx)

@@ -4,7 +4,8 @@ Counterpart of `gsavatar/inference.py:InferenceScene`. The scene is built
 from a state (the Gaussian arena and the converter's parameters) and the
 subject's metadata, or with `InferenceScene.from_checkpoint` from a
 checkpoint of the port's training (`scene.py:Scene.save_checkpoint`),
-which it renders at the checkpoint's iteration and SH degree. `init_state`
+which it renders at the checkpoint's iteration and SH degree, and
+`load_ply` plays back a 3DGS ply export. `init_state`
 makes a state from the port's own seeded initialisation (arena from the
 dataset's point cloud, converter weights from a torch.Generator seeded
 through numpy); `synthetic_scene` puts the two together for the synthetic
@@ -20,11 +21,12 @@ import torch
 from gsavatar_torch.camera.camera import Camera
 from gsavatar_torch.config import load_config
 from gsavatar_torch.core import gaussians as G
-from gsavatar_torch.data.synthetic import SyntheticDataset
+from gsavatar_torch.data import load_dataset
 from gsavatar_torch.device import resolve_device
 from gsavatar_torch.models.converter import build_converter, compute_nr_cache
 from gsavatar_torch.ops.rasterizer import RasterizeConfig
 from gsavatar_torch.renderer import RenderPackage, render
+from gsavatar_torch.utils import ply as ply_io
 
 
 @dataclasses.dataclass
@@ -83,27 +85,56 @@ class InferenceScene:
         white = cfg['dataset'].get('white_background', False)
         self.background = torch.full((3,), 1.0 if white else 0.0,
                                      device=self.device)
+        self.metadata = dict(metadata)
+        self.assets = assets
         self.converter = build_converter(cfg, metadata, assets)
         self.converter.load_state_dict(state.converter)
         self.converter.to(self.device).eval()
-        self.gauss_params = state.gauss_params.map(
-            lambda x: x.to(self.device))
-        self.gauss_aux = state.gauss_aux.map(lambda x: x.to(self.device))
+        self._set_arena(state.gauss_params, state.gauss_aux)
+
+    def _set_arena(self, params: G.GaussianParams, aux: G.GaussianAux):
+        self.gauss_params = params.map(lambda x: x.to(self.device))
+        self.gauss_aux = aux.map(lambda x: x.to(self.device))
         # render only the alive prefix when the alive slots form one
         alive = self.gauss_aux.alive.cpu()
         n_alive = int(alive.sum())
         self.bucket = n_alive if bool(alive[:n_alive].all()) else 0
         self._nr_cache = None
 
+    def load_ply(self, path: str, capacity: Optional[int] = None
+                 ) -> "InferenceScene":
+        """Static playback of a 3DGS ply export (`utils/ply.py`): its
+        Gaussians fill the first slots of an arena of `capacity` (default
+        their count), and the converter is built anew for a single frame
+        (`frame_dict` {0: 0}) with its initial weights from
+        `torch_generator(0)`, as the JAX package's `load_ply` rebuilds
+        its converter (a ply carries no converter weights)."""
+        data = ply_io.load_gaussian_ply(path, self.max_sh_degree)
+        n = data['xyz'].shape[0]
+        cap = capacity or n
+        params = G.empty_params(
+            cap, self.use_sh, self.max_sh_degree,
+            int(self.cfg['model']['gaussian']['feature_dim']))
+        for k, v in data.items():
+            getattr(params, k)[:n] = torch.from_numpy(np.array(v))
+        aux = G.empty_aux(cap)
+        aux.alive[:n] = True
+        self.metadata['frame_dict'] = {0: 0}
+        self.converter = build_converter(
+            self.cfg, self.metadata, self.assets,
+            generator=torch_generator(0)).to(self.device).eval()
+        self._set_arena(params, aux)
+        return self
+
     @classmethod
     def from_checkpoint(cls, cfg: dict, path: str, device=None
                         ) -> "InferenceScene":
         """The avatar of a training checkpoint, with the metadata of the
-        config's synthetic subject."""
+        config's subject (the training split of `data.load_dataset`)."""
         from gsavatar_torch.scene import read_checkpoint
         dev = resolve_device(device)
         ckpt = read_checkpoint(path, dev)
-        train = SyntheticDataset(cfg['dataset'], 'train')
+        train = load_dataset(cfg['dataset'], 'train')
         state = AvatarState(G.GaussianParams(**ckpt['gauss_params']),
                             G.GaussianAux(**ckpt['gauss_aux']),
                             ckpt['converter'])
@@ -138,8 +169,8 @@ def synthetic_scene(overrides: Sequence[str] = (), seed: int = 0,
     The state is made on the CPU and then moved, so that two scenes of one
     seed on two devices hold the same values."""
     cfg = load_config(overrides)
-    train = SyntheticDataset(cfg['dataset'], 'train')
-    predict = SyntheticDataset(cfg['dataset'], 'predict')
+    train = load_dataset(cfg['dataset'], 'train')
+    predict = load_dataset(cfg['dataset'], 'predict', ground_truth=False)
     state = init_state(cfg, train, seed=seed, device='cpu')
     scene = InferenceScene(cfg, train.metadata, train.assets, state,
                            device=device)

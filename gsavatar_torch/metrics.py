@@ -7,9 +7,9 @@ source (`ops/lpips.py:metric_key`: 'lpips' with the exported bundle,
 'lpips_rand' with the random backbone). Images are (H, W, 3) tensors in
 [0, 1], masks (H, W); a mask pixel counts where it is > 0, for the PSNR as
 for the box (the JAX package indexes with the mask as it is, which needs a
-boolean one). `get_evaluator('people_snapshot')` raises: its evaluator
-needs LPIPS's Alex backbone and the PeopleSnapshot loader, which the port
-does not have yet."""
+boolean one). `PSEvaluator`, the PeopleSnapshot bundle that
+`get_evaluator('people_snapshot')` returns, scores the whole image: PSNR,
+SSIM, and LPIPS with the Alex backbone in f32."""
 from __future__ import annotations
 
 import torch
@@ -59,9 +59,17 @@ class Evaluator:
                 lpips_mod.metric_key(): float(lpips_mod.lpips(a, b))}
 
 
-def get_evaluator(dataset_name: str) -> Evaluator:
-    if dataset_name == 'people_snapshot':
-        raise NotImplementedError(
-            "the PeopleSnapshot evaluator (LPIPS-Alex) is not ported yet "
-            "(ROADMAP item 11)")
-    return Evaluator()
+class PSEvaluator:
+    """The PeopleSnapshot metric bundle: PSNR, SSIM and LPIPS-Alex, each
+    over the whole image (the mask is not used)."""
+
+    @torch.no_grad()
+    def __call__(self, img, gt, valid_mask=None) -> dict:
+        return {'psnr': psnr(img, gt), 'ssim': float(ssim(img, gt)),
+                lpips_mod.metric_key('alex'):
+                float(lpips_mod.lpips(img, gt, net='alex'))}
+
+
+def get_evaluator(dataset_name: str):
+    return PSEvaluator() if dataset_name == 'people_snapshot' \
+        else Evaluator()

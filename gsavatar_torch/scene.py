@@ -2,7 +2,8 @@
 
 Counterpart of `gsavatar/scene.py` (`Scene`, `TrainState`,
 `converter_optimizer`, `save_checkpoint`, `load_checkpoint`). The Scene
-owns what is fixed for a run (datasets with their ground truth, the
+owns what is fixed for a run (the datasets of `data.load_dataset`, their
+cameras' ground truth on the scene's device, the
 converter module, the raster config, the background, the skinning pool,
 the schedules); `init_state` makes the `TrainState` that
 `train.make_train_step` advances.
@@ -28,7 +29,7 @@ import torch
 
 from gsavatar_torch.core import gaussians as G
 from gsavatar_torch.core.optim import ArenaAdamState, init_adam
-from gsavatar_torch.data.synthetic import SyntheticDataset
+from gsavatar_torch.data import load_dataset
 from gsavatar_torch.device import resolve_device
 from gsavatar_torch.inference import raster_config_from, torch_generator
 from gsavatar_torch.models.converter import build_converter
@@ -137,10 +138,10 @@ class Scene:
         self.cfg = cfg
         self.device = resolve_device(device)
         split = TEST_SPLIT[cfg.get('mode', 'train')]
-        self.train_dataset = SyntheticDataset(cfg['dataset'], 'train',
-                                              gt_device=self.device)
-        self.test_dataset = SyntheticDataset(cfg['dataset'], split,
-                                             gt_device=self.device)
+        self.train_dataset = load_dataset(cfg['dataset'], 'train',
+                                          device=self.device)
+        self.test_dataset = load_dataset(cfg['dataset'], split,
+                                         device=self.device)
         self.metadata = md = self.train_dataset.metadata
         self.cameras_extent = float(md['cameras_extent'])
 

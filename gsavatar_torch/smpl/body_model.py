@@ -1,12 +1,16 @@
-"""SMPL asset bundle: the deterministic synthetic humanoid.
+"""SMPL asset bundle: the reference's npz layout and a synthetic stand-in.
 
-The port's own copy of the numpy-only parts of `gsavatar/smpl/body_model.py`:
-`synthetic_assets` builds an anatomically plausible humanoid with the exact
-SMPL shapes, so the whole avatar stack runs without SMPL data. Loading the
-real SMPL bundle comes with the data-layer slice."""
+The port's own copy of `gsavatar/smpl/body_model.py` (numpy only):
+`load_assets` reads the per-gender arrays of a `body_models/misc`
+directory; `synthetic_assets` builds an anatomically plausible humanoid
+with the exact SMPL shapes, so the whole avatar stack runs without SMPL
+data; `find_assets` takes the first when the directory exists and the
+second otherwise."""
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 from scipy.spatial import cKDTree
@@ -32,6 +36,34 @@ class SMPLAssets:
     @property
     def n_verts(self) -> int:
         return self.v_template.shape[0]
+
+
+def load_assets(base_dir: str, gender: str = "neutral") -> SMPLAssets:
+    """The `body_models/misc` bundle: v_templates, shapedirs_all,
+    posedirs_all (stored (V, 3, 207), returned (207, V*3)), J_regressors,
+    skinning_weights_all and faces npz files, each keyed by gender, and an
+    optional kintree_table.npy."""
+    def _npz(name):
+        return np.load(os.path.join(base_dir, name))
+
+    pd = _npz("posedirs_all.npz")[gender]
+    posedirs = pd.reshape([pd.shape[0] * 3, -1]).T.astype(np.float32)
+    kt_path = os.path.join(base_dir, "kintree_table.npy")
+    parents = (np.load(kt_path)[0].astype(np.int32)
+               if os.path.exists(kt_path) else KTREE_PARENTS)
+    parents = parents.copy()
+    parents[0] = -1
+    return SMPLAssets(
+        gender=gender,
+        v_template=_npz("v_templates.npz")[gender].astype(np.float32),
+        shapedirs=_npz("shapedirs_all.npz")[gender].astype(np.float32),
+        posedirs=posedirs,
+        J_regressor=_npz("J_regressors.npz")[gender].astype(np.float32),
+        skinning_weights=_npz("skinning_weights_all.npz")[gender].astype(
+            np.float32),
+        faces=_npz("faces.npz")["faces"].astype(np.int64),
+        parents=parents,
+    )
 
 
 # --- synthetic humanoid -----------------------------------------------------
@@ -151,3 +183,12 @@ def synthetic_assets(n_verts: int = 6890, seed: int = 0,
         faces=faces.astype(np.int64),
         parents=parents,
     )
+
+
+def find_assets(base_dir: Optional[str], gender: str = "neutral",
+                n_verts: int = 6890, seed: int = 0) -> SMPLAssets:
+    """The real bundle if `base_dir` is a directory, else the synthetic
+    humanoid of `n_verts` vertices from `seed`."""
+    if base_dir and os.path.isdir(base_dir):
+        return load_assets(base_dir, gender)
+    return synthetic_assets(n_verts=n_verts, seed=seed, gender=gender)

@@ -1,5 +1,6 @@
 """The port stands alone: gsavatar_torch and chip_smoke.py import nothing of
-JAX or of the JAX package, no module builds or imports a GPU toolchain at
+JAX or of the JAX package, nor OpenCV or Pillow (the card's machine has
+neither), no module builds or imports a GPU toolchain at
 import time, the entry points refuse to run without a GPU unless the
 caller asks for the CPU, and a kernel library's name follows every source
 it is built from."""
@@ -14,7 +15,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gsavatar')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gsavatar', 'cv2',
+             'PIL')
 PORT_FILES = sorted((ROOT / 'gsavatar_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py']
 
@@ -38,7 +40,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_pulls_in_no_jax_triton_or_build():
     """Importing every module of the port, in a fresh interpreter, loads
-    no JAX, no gsavatar, no triton, and compiles nothing."""
+    no JAX, no gsavatar, no OpenCV or Pillow, no triton, and compiles
+    nothing (neither the kernels nor the JPEG decoder)."""
     code = (
         "import importlib, pkgutil, sys, gsavatar_torch\n"
         "for m in pkgutil.walk_packages(gsavatar_torch.__path__, "

@@ -208,26 +208,54 @@ CODE_DEFAULTS = {'opt.bucket_granularity': 4096,    # gsavatar/scene.py:253
                  'strict_overflow': False}          # gsavatar/train.py:758
 
 
+DATASET_GROUPS = ['synthetic'] + sorted(tconfig.DATASETS)
+
+
 def test_config_matches_yaml_defaults():
     """Every key of the port's config equals the JAX package's composed
-    config for dataset=synthetic, with overrides applied alike, or the
-    default the JAX code reads it with."""
-    ov = ["dataset.img_hw=[540,540]", "model.gaussian.capacity=131072"]
-    want = j_load_config(overrides=["dataset=synthetic"] + ov)
-    got = tconfig.load_config(["dataset=synthetic"] + ov)
-    for key, value in _leaves(got):
-        if key in CODE_DEFAULTS:
-            assert value == CODE_DEFAULTS[key], key
-            continue
-        node = want
-        for part in key.split('.'):
-            node = node[part]
-        node = node.to_dict() if hasattr(node, 'to_dict') else node
-        assert value == node, key
+    config for each dataset group the port serves (synthetic and the
+    eleven real subjects, with their `opt:` keys and the
+    `${dataset.val_views}` interpolation resolved after the overrides),
+    with overrides applied alike, or the default the JAX code reads it
+    with."""
+    ov = ["dataset.img_hw=[540,540]", "model.gaussian.capacity=131072",
+          "dataset.val_views=['5','6']"]
+    for group in DATASET_GROUPS:
+        want = j_load_config(overrides=[f"dataset={group}"] + ov)
+        got = tconfig.load_config([f"dataset={group}"] + ov)
+        for key, value in _leaves(got):
+            if key in CODE_DEFAULTS:
+                assert value == CODE_DEFAULTS[key], key
+                continue
+            node = want
+            for part in key.split('.'):
+                node = node[part]
+            node = node.to_dict() if hasattr(node, 'to_dict') else node
+            assert value == node, (group, key)
+        if group.startswith('zjumocap'):
+            assert got['dataset']['test_views']['view'] == ['5', '6']
+        if group != 'synthetic':
+            # every dataset key of the group's yaml and the root's, but the
+            # `mode` copy that no loader reads
+            assert {k for k, _ in _leaves(got['dataset'])} >= {
+                k for k, _ in _leaves(want['dataset'].to_dict())} - {'mode'}
+    assert tconfig.load_config(["dataset=ps_female_3"])['opt'][
+        'densify_grad_threshold'] == 0.0001
+
+
+def test_synthetic_is_the_port_default():
+    """The port's default dataset is synthetic; the JAX package's is
+    zjumocap_377_mono (config.yaml)."""
+    assert tconfig.load_config()['dataset']['name'] == 'synthetic'
+    assert tconfig.load_config() == tconfig.load_config(
+        ["dataset=synthetic"])
+    assert j_load_config().dataset.name == 'zjumocap'
 
 
 def test_config_groups_take_only_the_default():
     with pytest.raises(NotImplementedError):
-        tconfig.load_config(["dataset=zjumocap_377_mono"])
+        tconfig.load_config(["texture=sh"])
+    with pytest.raises(NotImplementedError):
+        tconfig.load_config(["dataset=zjumocap_999_mono"])
     assert tconfig.load_config(["texture=shallow_mlp"]) == \
         tconfig.load_config()

@@ -130,3 +130,15 @@ def assert_render_gates(got, want, name):
     d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
     assert d.mean() < 1e-4, (name, d.mean())
     assert (d > 1e-2).mean() < 1e-3, (name, (d > 1e-2).mean())
+
+
+def smooth_frame(h, w, seed, grey=False):
+    """Smooth colour fields with a little noise (what a camera sees)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.stack([128 + 100 * np.sin(6 * x + 6 * rng.random() + 3 * y),
+                    128 + 90 * np.cos(9 * y + rng.random()),
+                    128 + 60 * np.sin(5 * (x + y))], -1)
+    img += rng.normal(0, 12, img.shape)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    return img[..., 0] if grey else img
