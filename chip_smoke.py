@@ -1,6 +1,6 @@
 """On-card smoke test of gsavatar_torch: the avatar render path, the
-training step, the full training run with evaluation, and the narrow-row
-probe.
+training step, the full training run with evaluation, the narrow-row
+probe, the real-format data path and the model variants.
 
     python3 chip_smoke.py
 
@@ -66,7 +66,18 @@ them. Phases, any failure ends the run with a non-zero exit:
    just after: K1 30, K2 30, K3 180), its test split evaluated with saved
    frames that decode back equal; then a PeopleSnapshot tree at 1080^2 ->
    540^2 trained 10 steps, scored by `PSEvaluator` (LPIPS-Alex) and its
-   rotating_models predict split rendered.
+   rotating_models predict split rendered;
+12. the model variants (VARIANTS: the MLP deformer, the Hann-window
+   deformer with the SH texture, nearest-vertex skinning, the distilled
+   skinning voxel, the plain-3DGS baseline, the wide MLP texture) at the
+   bench shape and their published widths: each 10 training steps from
+   iteration 12000 (every delay gate open) and 4 frames of `evaluate`,
+   with the launch counts set to 0 just before and read just after (K1
+   14, K2 10, K3 60, or 50 without the hash grid's table gradient), the
+   step median, frame mean and peak memory, the converter's forward
+   under the profiler (and the voxel's build, or `nn_index` with the
+   share of its indices equal to the CPU's), and a small step of the
+   variant on the card against the CPU's.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
@@ -385,13 +396,14 @@ def render_gates(got, want, name):
         fail(f"{name} misses the render gates against the CPU reference")
 
 
-def small_train_scene(device, ref=None):
-    """The SMALL_SHAPE training scene on `device`; with `ref` (a scene on
-    another device), its state, converter weights and draws' generator
-    copied from `ref` so that the two steps see the same inputs."""
+def small_train_scene(device, ref=None, overrides=()):
+    """The SMALL_SHAPE training scene (of the model variant `overrides`)
+    on `device`; with `ref` (a scene on another device), its state,
+    converter weights and draws' generator copied from `ref` so that the
+    two steps see the same inputs."""
     from gsavatar_torch.config import load_config
     from gsavatar_torch.scene import Scene
-    cfg = load_config(SMALL_SHAPE)
+    cfg = load_config(SMALL_SHAPE + list(overrides))
     scene = Scene(cfg, seed=SEED, device=device)
     state = scene.init_state()
     if ref is not None:
@@ -415,24 +427,28 @@ def grad_gates(got, want, name):
     return cos, rel
 
 
-def train_reference():
-    """One small training step on the card and on the CPU from the same
-    state, camera and draws: loss terms within LOSS_RTOL, every gradient
-    leaf within bench.py's gates."""
+def train_reference(overrides=(), iteration=LATE_ITERATION,
+                    label='train reference'):
+    """One small training step (of the model variant `overrides`, at
+    `iteration` with its SH degree) on the card and on the CPU from the
+    same state, camera and draws: loss terms within LOSS_RTOL, every
+    gradient leaf within bench.py's gates."""
     from gsavatar_torch.train import draw, loss_weights, make_grad_fn
-    cfg, cpu, cpu_state = small_train_scene('cpu')
-    _, gpu, gpu_state = small_train_scene(DEVICE, ref=(cpu, cpu_state))
+    cfg, cpu, cpu_state = small_train_scene('cpu', overrides=overrides)
+    _, gpu, gpu_state = small_train_scene(DEVICE, ref=(cpu, cpu_state),
+                                          overrides=overrides)
     cam_cpu = cpu.train_dataset[0]
     cam_gpu = gpu.train_dataset[0].replace(image=cam_cpu.image.to(DEVICE),
                                            mask=cam_cpu.mask.to(DEVICE))
     draws = draw(cpu, cpu_state.generator)
-    w = loss_weights(cfg, LATE_ITERATION)
+    w = loss_weights(cfg, iteration)
+    deg = cpu.active_sh_degree(iteration)
     bucket = cpu.bucket_for(int(cpu_state.gauss_aux.alive.sum()))
     out = {}
     for name, scene, state, cam in (('cpu', cpu, cpu_state, cam_cpu),
                                     ('gpu', gpu, gpu_state, cam_gpu)):
         out[name] = make_grad_fn(scene)(
-            state, cam, LATE_ITERATION, w, draws.to(scene.device), 0,
+            state, cam, iteration, w, draws.to(scene.device), deg,
             bucket, scene.raster_config)
     (m_c, _, g_c), (m_g, _, g_g) = out['cpu'], out['gpu']
     worst = 0.0
@@ -443,7 +459,7 @@ def train_reference():
         rel = abs(a - b) / max(abs(b), 1e-12)
         worst = max(worst, rel if abs(b) > 1e-9 else 0.0)
         if abs(b) > 1e-9 and rel > LOSS_RTOL:
-            fail(f"small step: {k} {a} on the card, {b} on the CPU")
+            fail(f"{label}: {k} {a} on the card, {b} on the CPU")
     leaves = [(f'conv/{k}', g_g['conv'][k], v)
               for k, v in g_c['conv'].items()]
     leaves += [(f'gauss/{f}', getattr(g_g['gauss'], f),
@@ -458,8 +474,8 @@ def train_reference():
         cos, rel = grad_gates(a, b, name)
         min_cos, max_rel = min(min_cos, cos), max(max_rel, rel)
         if not (cos > GRAD_COS and rel < GRAD_REL):
-            fail(f"small step gradient {name}: cosine {cos}, mean rel {rel}")
-    log(f"train reference: {len(leaves)} gradient leaves, min cosine "
+            fail(f"{label} gradient {name}: cosine {cos}, mean rel {rel}")
+    log(f"{label}: {len(leaves)} gradient leaves, min cosine "
         f"{min_cos:.7f} (gate > {GRAD_COS}), max mean rel {max_rel:.3e} "
         f"(gate < {GRAD_REL}); loss terms max rel {worst:.3e} (gate < "
         f"{LOSS_RTOL}); pairs {m_g['raster/n_pairs']} on the card, "
@@ -1556,6 +1572,187 @@ def real_data_phase(counters, work, gpu):
                   'PeopleSnapshot rotating_models predict split')
 
 
+# phase 12: the model variants at the bench shape and their published
+# widths (the paper's ablations and baselines), each from an iteration
+# where every gate is open: the non-rigid delay and the Hann window's
+# kick-in (3000), its full band (10000), pose correction (5000), SH degree 3
+# (from 3000)
+VARIANTS = {
+    'v_mlp': ('non_rigid=mlp',),
+    'v_hannw_sh': ('non_rigid=hannw_mlp', 'texture=sh'),
+    'v_smpl_nn': ('rigid=smpl_nn',),
+    'v_distill': ('model.deformer.rigid.distill=true',),
+    'v_3dgs': ('texture=sh', 'non_rigid=identity', 'rigid=identity',
+               'pose_correction=none'),
+    'v_wide_tex': ('texture=mlp',),
+}
+VARIANT_ITERATION = 12000
+VARIANT_STEPS = 10
+VARIANT_FRAMES = 4
+# nearest-vertex indices that differ between the card and the CPU must be
+# ties of the f32 distance |q|^2 + |v|^2 - 2 q.v that both evaluate: its
+# rounding moves each of the two distances by up to 8 f32 eps (|q|^2 +
+# max |v|^2), however small the distance, so the two exact distances must
+# agree within twice that
+NN_TIE_EPS = 16 * 2.0 ** -23
+
+
+def k3_per_step(cfg) -> int:
+    """K3 launches of one training step: the pair gradients and the four
+    AIAP gathers, and the hash table's gradient under the hash-grid
+    deformer."""
+    hashgrid = cfg['model']['deformer']['non_rigid']['name'] == 'hashgrid'
+    return K3_PER_STEP - (not hashgrid)
+
+
+def nn_agreement(scene, state, cam, bucket, it):
+    """The nearest-vertex indices of the rigid deformer's input (the
+    non-rigid deformer's output) on the card and on the CPU: the share that
+    agree, and where they differ the worst gap between the two exact
+    distances in units of the f32 rounding bound (NN_TIE_EPS): at most 1
+    for a tie."""
+    from gsavatar_torch.core import gaussians as G
+    from gsavatar_torch.ops import knn
+    conv = scene.converter
+    with torch.no_grad():
+        view = G.make_view(state.gauss_params, state.gauss_aux,
+                           bucket=bucket)
+        xyz, _ = conv.non_rigid(view, cam, it, cam.latent_idx)
+        xyz = xyz.get_xyz[state.gauss_aux.alive[:bucket]]
+        verts = conv.rigid.smpl_verts
+        idx_gpu = knn.nn_index(xyz, verts).long().cpu()
+        idx_cpu = knn.nn_index(xyz.cpu(), verts.cpu()).long()
+    diff = (idx_gpu != idx_cpu).nonzero()[:, 0]
+    q, v = xyz.cpu().double(), verts.cpu().double()
+    d_gpu = ((q[diff] - v[idx_gpu[diff]]) ** 2).sum(-1)
+    d_cpu = ((q[diff] - v[idx_cpu[diff]]) ** 2).sum(-1)
+    bound = NN_TIE_EPS * ((q[diff] ** 2).sum(-1) + (v ** 2).sum(-1).max())
+    gap = float(((d_gpu - d_cpu).abs() / bound).max()) if len(diff) else 0.0
+    share = 1.0 - len(diff) / len(idx_cpu)
+    return share, len(diff), gap, xyz, verts
+
+
+def variant_run(name, overrides, counters, gpu):
+    """VARIANT_STEPS training steps and VARIANT_FRAMES frames of `evaluate`
+    of one variant at the bench shape, with the kernels' launch counts set
+    to 0 just before and read just after; then its converter's device ms
+    under the profiler, and the small step against the CPU's."""
+    from gsavatar_torch.config import BENCH_OVERRIDES, load_config
+    from gsavatar_torch.data import load_dataset
+    from gsavatar_torch.evaluate import evaluate
+    from gsavatar_torch.core import gaussians as G
+    from gsavatar_torch.inference import AvatarState, InferenceScene
+    from gsavatar_torch.ops import knn
+    from gsavatar_torch.train import loss_weights, make_train_step
+    t0 = time.perf_counter()
+    cfg = load_config(list(BENCH_OVERRIDES) + list(overrides))
+    scene = driver_scene(cfg)
+    state = scene.init_state()
+    cams = [scene.train_dataset[i] for i in range(len(scene.train_dataset))]
+    predict = load_dataset(cfg['dataset'], 'predict', ground_truth=False)
+    frames = [predict[i] for i in range(len(predict))]
+    n_alive = int(state.gauss_aux.alive.sum())
+    bucket = scene.bucket_for(n_alive)
+    it0 = VARIANT_ITERATION
+    deg = scene.active_sh_degree(it0)
+    weights = loss_weights(cfg, it0)
+    weights['_in_densify_window'] = 1.0
+    xyz_lr = scene.xyz_lr_fn(it0)
+    step = make_train_step(scene)
+    n_params = sum(p.numel() for p in state.conv_params.values())
+    setup_s = time.perf_counter() - t0
+    step_ms, metrics = [], []
+
+    def run():
+        nonlocal state
+        for i in range(VARIANT_STEPS):
+            t1 = time.perf_counter()
+            state, m = step(state, cams[i % len(cams)], it0 + i, weights,
+                            xyz_lr, active_sh_degree=deg, bucket=bucket)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1000.0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        infer = InferenceScene(
+            cfg, scene.metadata, scene.assets,
+            AvatarState(state.gauss_params, state.gauss_aux,
+                        scene.converter.state_dict()), device=DEVICE,
+            iteration=it0 + VARIANT_STEPS)
+        return infer, evaluate(infer, frames, n_frames=VARIANT_FRAMES,
+                               keep_renders=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    (infer, res), launches = driven(counters, run)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    later = sorted(step_ms[1:])
+    log(f"variant {name} {' '.join(overrides)} ({gpu}): {n_alive} "
+        f"Gaussians, {n_params} converter parameters, SH degree {deg}, "
+        f"set-up {setup_s:.1f} s; {VARIANT_STEPS} steps from iteration "
+        f"{it0}, median {later[len(later) // 2]:.3f} ms/step without the "
+        f"first (first {step_ms[0]:.1f}), loss "
+        f"{metrics[0]['loss/total_loss']:.5f} -> "
+        f"{metrics[-1]['loss/total_loss']:.5f}; {VARIANT_FRAMES} frames, "
+        f"mean {res['time_ms']:.3f} ms/frame without the first; peak "
+        f"device memory {peak:.3f} GiB; launches {launches}")
+    log(f"variant {name} last step: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in sorted(metrics[-1].items())
+        if k.startswith('loss/')))
+    for i, m in enumerate(metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"variant {name} step {i}: non-finite {bad}")
+        if m['overflow/pairs']:
+            fail(f"variant {name} step {i}: pair_overflow "
+                 f"{m['overflow/pairs']}")
+    if any(res['pair_overflow']):
+        fail(f"variant {name}: pair_overflow {res['pair_overflow']}")
+    for i, (img, alpha) in enumerate(zip(res['images'], res['alphas'])):
+        if not bool(img.isfinite().all()) \
+                or not (0.0 <= float(img.min()) and float(img.max()) <= 1.0):
+            fail(f"variant {name} frame {i}: image not finite in [0, 1]")
+        if not float(alpha.mean()) > 0.0:
+            fail(f"variant {name} frame {i}: no alpha coverage")
+    want = {'composite_fwd': VARIANT_STEPS + VARIANT_FRAMES,
+            'composite_bwd': VARIANT_STEPS,
+            'segsum': k3_per_step(cfg) * VARIANT_STEPS, 'narrow_rows': 0}
+    if launches != want:
+        fail(f"variant {name}: launches {launches}, expected {want}")
+
+    cam = cams[0]
+    with torch.no_grad():
+        view = G.make_view(state.gauss_params, state.gauss_aux,
+                           active_sh_degree=deg, max_sh_degree=3,
+                           use_sh=scene.use_sh, bucket=bucket)
+        conv_ms = profiled_device_ms(
+            lambda: scene.converter(view, cam, it0), 5)
+        extra = ''
+        if name == 'v_distill':
+            vox_ms = profiled_device_ms(scene.converter.rigid._voxel, 5)
+            extra = f", the voxel's build {vox_ms:.3f} device ms"
+    if name == 'v_smpl_nn':
+        share, n_diff, gap, xyz, verts = nn_agreement(scene, state, cam,
+                                                      bucket, it0)
+        with torch.no_grad():
+            nn_ms = profiled_device_ms(lambda: knn.nn_index(xyz, verts), 5)
+        extra = (f", nn_index {nn_ms:.3f} device ms over {len(xyz)} "
+                 f"queries and {len(verts)} vertices; indices equal to the "
+                 f"CPU's: {share:.6f} ({n_diff} differ, the worst distance "
+                 f"gap {gap:.3f} of the f32 rounding bound)")
+        if gap > 1.0:
+            fail(f"variant {name}: nearest vertices differ from the CPU's "
+                 f"by more than a tie ({gap:.3f} of the bound)")
+    log(f"variant {name} ({gpu}): the converter's forward "
+        f"{conv_ms:.3f} device ms{extra}")
+    del infer, scene, state
+    train_reference(overrides, VARIANT_ITERATION,
+                    f"variant {name} reference")
+
+
+def variant_phase(counters, gpu):
+    """Phase 12: every model variant of VARIANTS."""
+    for name, overrides in VARIANTS.items():
+        variant_run(name, list(overrides), counters, gpu)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
@@ -1669,6 +1866,9 @@ def main():
         real_data_phase(counters, work, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # 12. the model variants
+    variant_phase(counters, gpu)
 
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,22 +1,26 @@
 """The port's configuration as a plain Python dict.
 
 Counterpart of `gsavatar/config/config.py` for what the render path, the
-training driver and the evaluation read:
-the defaults of `configs/config.yaml` composed with its default groups
-(`pose_correction/direct`, `texture/shallow_mlp`, `rigid/skinning_field`,
-`non_rigid/hashgrid`, `option/iter15k`) and `dataset/synthetic.yaml`, with
-the `${...}` interpolations resolved. Written out as a dict so that the port
-needs no YAML parser. `load_config(["a.b.c=value", ...])` applies dotted
-overrides; values are read as Python literals (`[540,540]`, `['0']`, `0.1`)
-or the words `true`/`false`/`null`. The dataset group may name `synthetic`
-(the port's default, where the JAX package's is `zjumocap_377_mono`) or one
-of the real subjects of `DATASETS` (`zjumocap_*_mono`, `ps_*`): the root
-config's dataset keys merged with that subject's, its `dataset_name`, and
-its other blocks (the `opt:` of `ps_female_3`). A whole-string
-`${dotted.key}` value (`test_views.view: ${dataset.val_views}`) is resolved
-after the overrides. Every other config group may name only its default:
-the port has no other yet. Keys that
-the JAX package reads with a default in its code rather than from its yaml
+training driver and the evaluation read. The root config
+(`configs/config.yaml`) and the choices of each config group
+(`configs/<group>/<choice>.yaml`) are written out here as dicts, so that
+the port needs no YAML parser; `load_config` composes them as the JAX
+`load_config` does: the root, then one choice of each group in the order
+dataset, pose_correction, texture, rigid, non_rigid, option (a `group=choice`
+override, else `DEFAULT_GROUPS`), then the `dotted.key=value` overrides,
+then the `${...}` interpolations. Override values are read as Python
+literals (`[540,540]`, `['0']`, `0.1`) or the words `true`/`false`/`null`.
+
+Every choice of the JAX package's groups is admitted: `pose_correction=
+direct|none`, `texture=shallow_mlp|mlp|sh`, `rigid=skinning_field|smpl_nn|
+identity`, `non_rigid=hashgrid|mlp|hannw_mlp|identity` and `option=iter15k|
+iter30k|iter40k|iter50k|no_mask|no_val|test_all`. The dataset group may
+name `synthetic` (the port's default, where the JAX package's is
+`zjumocap_377_mono`) or one of the real subjects of `DATASETS`
+(`zjumocap_*_mono`, `ps_*`): the root config's dataset keys merged with that
+subject's, its `dataset_name`, and its other blocks (the `opt:` of
+`ps_female_3`). An unknown choice raises. Keys that the JAX package reads
+with a default in its code rather than from its yaml
 (`opt.bucket_granularity`, `log_every`, `max_val_frames`,
 `strict_overflow`) are here at that default."""
 from __future__ import annotations
@@ -26,84 +30,81 @@ import copy
 import re
 from typing import Iterable, Optional
 
-DEFAULTS = {
+# configs/config.yaml: the root config without its group defaults (the
+# keys the port reads), and the keys that the JAX package reads with a
+# default in its code
+ROOT = {
     'model': {
-        'gaussian': {
-            'use_sh': False,
-            'sh_degree': 3,
-            'feature_dim': 32,
-            'capacity': 262144,
-            'delay': 1000,
-        },
-        'pose_correction': {'name': 'direct', 'delay': 5000},
-        'deformer': {
-            'rigid': {
-                'name': 'skinning_field',
-                'distill': False,
-                'd_out': 25,
-                'soft_blend': 20,
-                'skinning_network': {
-                    'n_neurons': 128,
-                    'n_hidden_layers': 4,
-                    'skip_in': [],
-                    'cond_in': [],
-                    'multires': 0,
-                },
-            },
-            'non_rigid': {
-                'name': 'hashgrid',
-                'scale_offset': 'logit',
-                'rot_offset': 'mult',
-                'delay': 3000,
-                'feature_dim': 16,
-                'latent_dim': 0,
-                'pose_encoder': {
-                    'num_joints': 24,
-                    'rel_joints': False,
-                    'dim_per_joint': 6,
-                    'out_dim': -1,
-                },
-                'hashgrid': {
-                    'n_levels': 16,
-                    'n_features_per_level': 2,
-                    'log2_hashmap_size': 16,
-                    'base_resolution': 16,
-                    'per_level_scale': 1.447269237440378,
-                    'max_resolution': 2048,
-                },
-                'mlp': {
-                    'n_neurons': 128,
-                    'n_hidden_layers': 3,
-                    'skip_in': [],
-                    'cond_in': [0],
-                    'multires': 0,
-                },
-            },
-        },
-        'texture': {
-            'name': 'mlp',
-            'feature_dim': 32,
-            'use_xyz': False,
-            'use_cov': False,
-            'use_normal': False,
-            'sh_degree': 3,
-            'non_rigid_dim': 16,
-            'latent_dim': 16,
-            'cano_view_dir': True,
-            'view_noise': 45,
-            'mlp': {
-                'n_neurons': 64,
-                'n_hidden_layers': 2,
-                'skip_in': [],
-                'cond_in': [],
-                'multires': 0,
-            },
-        },
+        'gaussian': {'use_sh': True, 'sh_degree': 3, 'delay': 1000,
+                     'capacity': 262144},
+        'pose_correction': {'name': 'direct'},
+        'deformer': {'rigid': {'name': 'identity'},
+                     'non_rigid': {'name': 'identity'}},
     },
+    'opt': {
+        'iterations': 60000,
+        'grad_clip': 0.1,
+        'position_lr_init': 0.00016,
+        'position_lr_final': 1.6e-06,
+        'position_lr_delay_mult': 0.01,
+        'position_lr_max_steps': 30000,
+        'feature_lr': 0.0025,
+        'opacity_lr': 0.05,
+        'scaling_lr': 0.005,
+        'rotation_lr': 0.001,
+        'pose_correction_lr': 0.0001,
+        'rigid_lr': 0.0001,
+        'non_rigid_lr': 0.001,
+        'lr_ratio': 0.01,
+        'lambda_l1': 1.0,
+        'lambda_dssim': 0.0,
+        'lambda_perceptual': 0.01,
+        'mask_loss_type': 'l1',
+        'lambda_mask': 0.1,
+        'lambda_opacity': 0.0,
+        'lambda_skinning': [10, 1000, 0.1],
+        'lambda_pose': 0.0,
+        'lambda_aiap_xyz': 1.0,
+        'lambda_aiap_cov': 100.0,
+        'percent_dense': 0.01,
+        'densification_interval': 100,
+        'opacity_reset_interval': 3000,
+        'densify_from_iter': 500,
+        'densify_until_iter': 45000,
+        'densify_grad_threshold': 0.0002,
+        'opacity_threshold': 0.05,
+        'n_reg_pts': 1024,
+        'skinning_pool_size': 65536,
+        'bucket_granularity': 4096,
+    },
+    'pipeline': {'pose_noise': 0.1},
+    'rasterizer': {'max_pairs': 2097152, 'max_rect': 8},
+    'parallel': {'data': 0, 'model': 0},
+    'name': '${dataset_name}-${pose_name}-${rigid_name}-${non_rigid_name}-'
+            '${texture_name}-${tag}',
+    'tag': 'default',
+    'seed': -1,
+    'mode': 'train',
+    'exp_dir': None,
+    'log_every': 10,
+    'test_interval': 2000,
+    'test_iterations': [],
+    'save_iterations': [30000],
+    'checkpoint_iterations': [],
+    'max_val_frames': None,
+    'strict_overflow': False,
+    'start_checkpoint': None,
+    'load_ckpt': None,
+}
+
+# the port's default dataset group: configs/dataset/synthetic.yaml with the
+# root's dataset keys that its loader reads
+SYNTHETIC = {
+    'dataset_name': 'synthetic',
     'dataset': {
         'name': 'synthetic',
         'test_mode': 'view',
-        'train_smpl': True,
+        'train_smpl': False,
         'padding': 0.1,
         'white_background': False,
         'n_verts': 2048,
@@ -119,71 +120,129 @@ DEFAULTS = {
         'img_hw': [256, 256],
         'seed': 0,
     },
-    'opt': {
-        'iterations': 15000,
-        'grad_clip': 0.1,
-        'position_lr_init': 0.00016,
-        'position_lr_final': 1.6e-06,
-        'position_lr_delay_mult': 0.01,
-        'position_lr_max_steps': 30000,
-        'feature_lr': 0.001,
-        'opacity_lr': 0.05,
-        'scaling_lr': 0.005,
-        'rotation_lr': 0.001,
-        'pose_correction_lr': 0.0001,
-        'rigid_lr': 0.0001,
-        'non_rigid_lr': 0.001,
-        'nr_latent_lr': 0.001,
-        'texture_lr': 0.001,
-        'tex_latent_lr': 0.001,
-        'latent_weight_decay': 0.05,
-        'lr_ratio': 0.1,
-        'lambda_l1': 1.0,
-        'lambda_dssim': 0.0,
-        'lambda_perceptual': 0.01,
-        'mask_loss_type': 'l1',
-        'lambda_mask': 0.1,
-        'lambda_opacity': 0.0,
-        'lambda_skinning': [10, 1000, 0.1],
-        'lambda_pose': 0.0,
-        'lambda_aiap_xyz': 1.0,
-        'lambda_aiap_cov': 100.0,
-        'lambda_nr_xyz': 0.0,
-        'lambda_nr_scale': 0.0,
-        'lambda_nr_rot': 0.0,
-        'densification_interval': 100,
-        'opacity_reset_interval': 3000,
-        'densify_from_iter': 500,
-        'densify_until_iter': 10000,
-        'densify_grad_threshold': 0.0002,
-        'opacity_threshold': 0.05,
-        'percent_dense': 0.01,
-        'bucket_granularity': 4096,
-        'n_reg_pts': 1024,
-        'skinning_pool_size': 65536,
-    },
-    'pipeline': {'pose_noise': 0.1},
-    'rasterizer': {'max_pairs': 2097152, 'max_rect': 8},
-    'parallel': {'data': 0, 'model': 0},
-    'dataset_name': 'synthetic',
-    'name': '${dataset_name}-direct-mlp_field-ingp-shallow_mlp-default',
-    'seed': -1,
-    'mode': 'train',
-    'exp_dir': None,
-    'log_every': 10,
-    'test_interval': 1000,
-    'test_iterations': [],
-    'save_iterations': [30000],
-    'checkpoint_iterations': [],
-    'max_val_frames': None,
-    'strict_overflow': False,
-    'start_checkpoint': None,
-    'load_ckpt': None,
 }
 
-# the root config's dataset keys under every real subject (config.yaml,
-# with train_smpl from pose_correction/direct)
-DATASET_ROOT = {'preload': True, 'train_smpl': True, 'test_mode': 'view',
+_POSE_ENCODER = {'num_joints': 24, 'rel_joints': False, 'dim_per_joint': 6,
+                 'out_dim': -1}
+_NR_REG = {'lambda_nr_xyz': 0.0, 'lambda_nr_scale': 0.0, 'lambda_nr_rot': 0.0,
+           'non_rigid_lr': 0.001}
+
+
+def _mlp_texture(name, feature_dim, dim, n_neurons, n_hidden_layers, opt):
+    return {
+        'texture_name': name,
+        'model': {
+            'gaussian': {'use_sh': False, 'feature_dim': feature_dim},
+            'texture': {
+                'name': 'mlp', 'feature_dim': '${model.gaussian.feature_dim}',
+                'use_xyz': False, 'use_cov': False, 'use_normal': False,
+                'sh_degree': 3, 'non_rigid_dim': dim, 'latent_dim': dim,
+                'cano_view_dir': True, 'view_noise': 45,
+                'mlp': {'n_neurons': n_neurons,
+                        'n_hidden_layers': n_hidden_layers, 'skip_in': [],
+                        'cond_in': [], 'multires': 0}}},
+        'opt': dict(opt, texture_lr=0.001, tex_latent_lr=0.001,
+                    latent_weight_decay=0.05)}
+
+
+def _non_rigid(name, short, opt, **body):
+    return {'non_rigid_name': short,
+            'model': {'deformer': {'non_rigid': dict(name=name, **body)}},
+            'opt': opt}
+
+
+def _deformer_mlp(**extra):
+    return dict({'n_neurons': 256, 'n_hidden_layers': 8, 'skip_in': [4],
+                 'cond_in': [0], 'multires': 6}, **extra)
+
+
+# the other config groups: the port's copies of configs/<group>/<choice>.yaml
+# (each a block of the whole config), merged over the root in the JAX
+# package's group order
+GROUPS = {
+    'pose_correction': {
+        'direct': {'pose_name': 'direct', 'dataset': {'train_smpl': True},
+                   'model': {'pose_correction': {'name': 'direct',
+                                                 'delay': 5000}},
+                   'opt': {'pose_correction_lr': 0.0001,
+                           'lambda_pose': 0.0}},
+        'none': {'pose_name': 'none', 'dataset': {'train_smpl': False},
+                 'model': {'pose_correction': {'name': 'none'}}},
+    },
+    'texture': {
+        'shallow_mlp': _mlp_texture('shallow_mlp', 32, 16, 64, 2,
+                                    {'feature_lr': 0.001}),
+        'mlp': _mlp_texture('mlp', 128, 64, 256, 4, {}),
+        'sh': {'texture_name': 'sh',
+               'model': {'gaussian': {'use_sh': True, 'sh_degree': 3},
+                         'texture': {'name': 'sh2rgb', 'cano_view_dir': True,
+                                     'view_noise': 45, 'non_rigid_dim': 0}}},
+    },
+    'rigid': {
+        'skinning_field': {
+            'rigid_name': 'mlp_field',
+            'model': {'deformer': {'rigid': {
+                'name': 'skinning_field', 'distill': False, 'res': 64,
+                'z_ratio': 4, 'd_out': 25, 'soft_blend': 20,
+                'n_reg_pts': 1024,
+                'skinning_network': {'otype': 'VanillaMLP', 'n_neurons': 128,
+                                     'n_hidden_layers': 4, 'skip_in': [],
+                                     'cond_in': [], 'multires': 0}}}},
+            'opt': {'lambda_skinning': [10, 1000, 0.1], 'rigid_lr': 0.0001}},
+        'smpl_nn': {'rigid_name': 'smpl_nn',
+                    'model': {'deformer': {'rigid': {'name': 'smpl_nn'}}}},
+        'identity': {'rigid_name': 'identity',
+                     'model': {'deformer': {'rigid': {'name': 'identity'}}}},
+    },
+    'non_rigid': {
+        'hashgrid': _non_rigid(
+            'hashgrid', 'ingp', dict(_NR_REG, nr_latent_lr=0.001),
+            scale_offset='logit', rot_offset='mult', delay=3000,
+            feature_dim='${model.texture.non_rigid_dim}', latent_dim=0,
+            pose_encoder=_POSE_ENCODER,
+            hashgrid={'n_levels': 16, 'n_features_per_level': 2,
+                      'log2_hashmap_size': 16, 'base_resolution': 16,
+                      'per_level_scale': 1.447269237440378,
+                      'max_resolution': 2048},
+            mlp={'n_neurons': 128, 'n_hidden_layers': 3, 'skip_in': [],
+                 'cond_in': [0], 'multires': 0, 'last_layer_init': False}),
+        'mlp': _non_rigid(
+            'mlp', 'mlp', dict(_NR_REG, nr_latent_lr=0.001),
+            scale_offset='logit', rot_offset='mult', delay=3000,
+            feature_dim='${model.texture.non_rigid_dim}', latent_dim=0,
+            pose_encoder=_POSE_ENCODER,
+            mlp=_deformer_mlp(last_layer_init=False)),
+        'hannw_mlp': _non_rigid(
+            'hannw_mlp', 'hannw_mlp', _NR_REG, scale_offset='logit',
+            rot_offset='add', pose_encoder=_POSE_ENCODER,
+            mlp=_deformer_mlp(embedder={'kick_in_iter': 3000,
+                                        'full_band_iter': 10000})),
+        'identity': _non_rigid('identity', 'identity', {}, delay=0),
+    },
+    'option': {
+        'iter15k': {'opt': {'iterations': 15000, 'lr_ratio': 0.1,
+                            'densify_until_iter': 10000},
+                    'test_interval': 1000},
+        'iter30k': {'opt': {'iterations': 30000, 'lr_ratio': 0.1,
+                            'densify_until_iter': 15000}},
+        'iter40k': {'opt': {'iterations': 40000, 'lr_ratio': 0.1,
+                            'densify_until_iter': 20000}},
+        'iter50k': {'opt': {'iterations': 50000, 'lr_ratio': 0.1,
+                            'densify_until_iter': 25000}},
+        'no_mask': {'opt': {'lambda_mask': 0.0, 'lambda_opacity': 0.001}},
+        'no_val': {'test_interval': 0, 'test_iterations': []},
+        'test_all': {'dataset': {'test_mode': 'all'}},
+    },
+}
+
+# each group's choice when the overrides name none (the dataset group's is
+# the port's own, synthetic, where the JAX package's is zjumocap_377_mono)
+DEFAULT_GROUPS = {'dataset': 'synthetic', 'pose_correction': 'direct',
+                  'texture': 'shallow_mlp', 'rigid': 'skinning_field',
+                  'non_rigid': 'hashgrid', 'option': 'iter15k'}
+
+# the root config's dataset keys under every real subject (config.yaml)
+DATASET_ROOT = {'preload': True, 'train_smpl': False, 'test_mode': 'view',
                 'predict_seq': 0, 'freeview': False, 'resolution': -1,
                 'padding': 0.1, 'white_background': False, 'eval': False}
 
@@ -257,12 +316,6 @@ DATASETS['zjumocap_394_mono']['dataset']['test_views']['figure'] = ['22']
 DATASETS['zjumocap_394_mono']['dataset']['test_frames']['figure'] = [
     390, 391, 1]
 
-# config groups and the only choice the port has for each (the dataset
-# group also takes the subjects of DATASETS)
-GROUPS = {'dataset': 'synthetic', 'pose_correction': 'direct',
-          'texture': 'shallow_mlp', 'rigid': 'skinning_field',
-          'non_rigid': 'hashgrid', 'option': 'iter15k'}
-
 # the bench shape of the JAX package (bench.py:248-258): the synthetic
 # avatar at 540x540 with 50,000 Gaussians in an arena of 131072, a hidden
 # target of 50,000 Gaussians for the ground truth and a skinning pool of
@@ -321,27 +374,36 @@ def _interpolate(node, root: dict):
 
 
 def load_config(overrides: Optional[Iterable[str]] = None) -> dict:
-    """A fresh copy of DEFAULTS, with the dataset group given by a
-    `dataset=<group>` override, then `dotted.key=value` overrides."""
+    """The root config merged with one choice of each group (`group=choice`
+    overrides, else DEFAULT_GROUPS) in the JAX package's order, then the
+    `dotted.key=value` overrides, then the `${...}` interpolations. A
+    choice the JAX package has no file for raises."""
     overrides = list(overrides or ())
-    cfg = copy.deepcopy(DEFAULTS)
+    choice = dict(DEFAULT_GROUPS)
     for ov in overrides:
         if '=' not in ov:
             raise ValueError(f"override must be key=value: {ov}")
         key, value = ov.split('=', 1)
-        if key == 'dataset' and value in DATASETS:
-            group = DATASETS[value]
-            cfg = _merge(cfg, {k: v for k, v in group.items()
-                               if k != 'dataset'})
-            cfg['dataset'] = _merge(DATASET_ROOT, group['dataset'])
-        elif key in GROUPS and value != GROUPS[key]:
-            raise NotImplementedError(
-                f"{key}={value}: the port has only {key}={GROUPS[key]}"
-                + (f" or one of {sorted(DATASETS)}" if key == 'dataset'
-                   else ""))
+        if key in choice:
+            admitted = (['synthetic'] + sorted(DATASETS) if key == 'dataset'
+                        else sorted(GROUPS[key]))
+            if value not in admitted:
+                raise ValueError(f"{key}={value}: the choices are "
+                                 f"{admitted}")
+            choice[key] = value
+    cfg = copy.deepcopy(ROOT)
+    if choice['dataset'] == 'synthetic':
+        cfg = _merge(cfg, SYNTHETIC)
+    else:
+        group = DATASETS[choice['dataset']]
+        cfg = _merge(cfg, {k: v for k, v in group.items() if k != 'dataset'})
+        cfg['dataset'] = _merge(DATASET_ROOT, group['dataset'])
+    for key in ('pose_correction', 'texture', 'rigid', 'non_rigid',
+                'option'):
+        cfg = _merge(cfg, GROUPS[key][choice[key]])
     for ov in overrides:
         key, value = ov.split('=', 1)
-        if key in GROUPS:
+        if key in choice:
             continue
         node = cfg
         parts = key.split('.')

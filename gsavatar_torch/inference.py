@@ -51,7 +51,7 @@ def init_state(cfg: dict, dataset, seed: int = 0,
     points, colors = dataset.readPointCloud()
     params, aux = G.create_from_pcd(
         points, colors, int(g['capacity']), bool(g['use_sh']),
-        int(g['sh_degree']), int(g['feature_dim']), device=dev)
+        int(g['sh_degree']), int(g.get('feature_dim', 32)), device=dev)
     converter = build_converter(cfg, dataset.metadata, dataset.assets,
                                 generator=torch_generator(seed))
     return AvatarState(params, aux, converter.state_dict())
@@ -114,7 +114,7 @@ class InferenceScene:
         cap = capacity or n
         params = G.empty_params(
             cap, self.use_sh, self.max_sh_degree,
-            int(self.cfg['model']['gaussian']['feature_dim']))
+            int(self.cfg['model']['gaussian'].get('feature_dim', 32)))
         for k, v in data.items():
             getattr(params, k)[:n] = torch.from_numpy(np.array(v))
         aux = G.empty_aux(cap)

@@ -59,15 +59,19 @@ class GaussianConverter(nn.Module):
         return deformed, loss_reg, colors
 
     def skinning_loss(self, pts_norm, gt_weights):
-        """The skinning field's distillation loss at surface samples."""
-        return self.rigid.skinning_loss(pts_norm, gt_weights)
+        """The skinning field's distillation loss at surface samples; zero
+        for a rigid deformer without a learned field."""
+        if hasattr(self.rigid, 'skinning_loss'):
+            return self.rigid.skinning_loss(pts_norm, gt_weights)
+        return torch.zeros((), device=pts_norm.device)
 
     def subject_constants(self):
         """The float buffers that the JAX package keeps in the converter's
-        'subject' collection: the deformers' AABBs and the SMPL tables of
-        pose correction. They are not trained, but their gradients enter
-        the converter optimizer's global norm there, so the training step
-        takes them too (`train.make_grad_fn`)."""
+        'subject' collection: the deformers' AABBs, the nearest-vertex
+        deformer's template vertices and skinning weights, and the SMPL
+        tables of pose correction. They are not trained, but their
+        gradients enter the converter optimizer's global norm there, so the
+        training step takes them too (`train.make_grad_fn`)."""
         return {k: b for k, b in self.named_buffers()
                 if b.is_floating_point()}
 

@@ -1,12 +1,14 @@
-"""Pose-conditioned non-rigid deformer: the hash-grid variant.
+"""Pose-conditioned non-rigid deformers.
 
-Counterpart of `gsavatar/models/non_rigid.py:HashGridNonRigid` with its
-helpers `_apply_deltas` and `_reg`. Offsets: xyz additive; scale 'logit'
-(additive on log-scale); rotation 'mult' (quaternion product with the
-delta's w pinned to 1), the hash-grid config's modes. Before `delay` the
-deltas are multiplied by a zero gate, which is the identity for both. The
-other offset modes and the MLP, pose-encoder and identity variants come
-with a later slice."""
+Counterpart of `gsavatar/models/non_rigid.py`: the identity, MLP,
+Hann-window MLP and hash-grid variants, selected by `cfg['name']`, with
+their helpers `_apply_deltas` and `_reg`. Offsets: xyz additive; scale
+'logit' (additive on log-scale), 'exp' (additive on the scale) or 'zero';
+rotation 'add' (additive on the unnormalised quaternion, which
+`Gaussians.get_covariance` normalises) or 'mult' (quaternion product with
+the delta's w pinned to 1). Before `delay` the deltas are multiplied by a
+zero gate, which is the identity for every mode; the Hann-window variant
+zeroes its deltas before `kick_in_iter` instead."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,26 +20,40 @@ from gsavatar_torch.core.gaussians import Gaussians
 from gsavatar_torch.utils import transforms as T
 from gsavatar_torch.utils.aabb import AABB
 from .hashgrid import HashGrid
-from .mlp import cond_mlp_from_cfg
+from .mlp import HannwCondMLP, cond_mlp_from_cfg
 from .pose_encoder import HierarchicalPoseEncoder
 
 
 def _apply_deltas(gaussians: Gaussians, delta_xyz, delta_scale, delta_rot,
                   scale_offset: str, rot_offset: str, gate: float):
-    if (scale_offset, rot_offset) != ('logit', 'mult'):
-        raise ValueError(f"offset modes {scale_offset!r}/{rot_offset!r} are "
-                         "not part of the render path's configuration "
-                         "(logit/mult)")
     p = gaussians.params
     delta_xyz = gate * delta_xyz
     new_xyz = p.xyz + delta_xyz
-    delta_scale = gate * delta_scale
-    new_scaling = p.scaling + delta_scale
-    # gate == 0 gives the identity quaternion [1, 0, 0, 0]
-    q1 = torch.cat([torch.ones_like(delta_rot[:, :1]),
-                    gate * delta_rot[:, 1:]], dim=1)
-    delta_rot = q1[:, 1:]
-    new_rotation = T.quat_multiply(q1, p.rotation)
+
+    if scale_offset == 'logit':
+        delta_scale = gate * delta_scale
+        new_scaling = p.scaling + delta_scale
+    elif scale_offset == 'exp':
+        delta_scale = gate * delta_scale
+        new_scaling = torch.log(torch.clamp_min(
+            torch.exp(p.scaling) + delta_scale, 1e-6))
+    elif scale_offset == 'zero':
+        delta_scale = torch.zeros_like(delta_scale)
+        new_scaling = p.scaling
+    else:
+        raise ValueError(f"unknown scale offset {scale_offset!r}")
+
+    if rot_offset == 'add':
+        delta_rot = gate * delta_rot
+        new_rotation = p.rotation + delta_rot
+    elif rot_offset == 'mult':
+        # gate == 0 gives the identity quaternion [1, 0, 0, 0]
+        q1 = torch.cat([torch.ones_like(delta_rot[:, :1]),
+                        gate * delta_rot[:, 1:]], dim=1)
+        delta_rot = q1[:, 1:]          # the regularized part
+        new_rotation = T.quat_multiply(q1, p.rotation)
+    else:
+        raise ValueError(f"unknown rotation offset {rot_offset!r}")
 
     out = gaussians.replace(params=p.replace(
         xyz=new_xyz, scaling=new_scaling, rotation=new_rotation))
@@ -67,11 +83,32 @@ def make_hashgrid(hg: dict, generator=None) -> HashGrid:
         generator=generator)
 
 
-class HashGridNonRigid(nn.Module):
-    def __init__(self, aabb: AABB, mlp_cfg: dict, hashgrid_cfg: dict,
-                 latent_dim: int = 0, n_frames: int = 1, feature_dim: int = 0,
-                 delay: int = 0, scale_offset: str = 'logit',
-                 rot_offset: str = 'mult',
+class IdentityNonRigid(nn.Module):
+    """No deformation and no regularizer; a zero non-rigid feature of
+    `feature_dim` columns when that is > 0."""
+
+    def __init__(self, feature_dim: int = 0):
+        super().__init__()
+        self.feature_dim = feature_dim
+
+    def forward(self, gaussians: Gaussians, camera, iteration: int,
+                latent_idx: int, nr_cache=None):
+        if self.feature_dim > 0:
+            xyz = gaussians.params.xyz
+            gaussians = gaussians.replace(non_rigid_feature=torch.zeros(
+                (xyz.shape[0], self.feature_dim), device=xyz.device))
+        return gaussians, {}
+
+
+class _CondDeformBase(nn.Module):
+    """The latent and pose conditioning of the MLP and hash-grid variants,
+    their AABB (a float buffer: its gradient counts in the converter
+    optimizer's clip norm, as the JAX package's 'subject' constant does)
+    and their offsets."""
+
+    def __init__(self, aabb: AABB, latent_dim: int = 0, n_frames: int = 1,
+                 feature_dim: int = 0, delay: int = 0,
+                 scale_offset: str = 'logit', rot_offset: str = 'mult',
                  pose_encoder_cfg: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -92,15 +129,10 @@ class HashGridNonRigid(nn.Module):
             with torch.no_grad():
                 nn.init.normal_(self.latent.weight, 0.0, 1.0,
                                 generator=generator)
-        self.hashgrid = make_hashgrid(hashgrid_cfg, generator)
-        self.mlp = cond_mlp_from_cfg(
-            self.hashgrid.n_output_dims,
-            self.pose_encoder.n_output_dims + latent_dim, 10 + feature_dim,
-            mlp_cfg, generator)
 
-    def encode(self, xyz):
-        """Hash-grid features of canonical positions (N, 3) -> (N, L*F)."""
-        return self.hashgrid(self.aabb.normalize(xyz, sym=True))
+    @property
+    def cond_dim(self) -> int:
+        return self.pose_encoder.n_output_dims + self.latent_dim
 
     def _pose_feat(self, camera, latent_idx: int):
         feat = self.pose_encoder(camera.rots, camera.Jtrs)     # (1, D)
@@ -108,6 +140,44 @@ class HashGridNonRigid(nn.Module):
             feat = torch.cat([feat, self.latent.weight[latent_idx][None]],
                              dim=1)
         return feat
+
+    def _finish(self, gaussians, deltas, iteration: int):
+        gate = float(iteration >= self.delay)
+        out, dx, ds, dr = _apply_deltas(
+            gaussians, deltas[:, :3], deltas[:, 3:6], deltas[:, 6:10],
+            self.scale_offset, self.rot_offset, gate)
+        if self.feature_dim > 0:
+            out = out.replace(non_rigid_feature=gate * deltas[:, 10:])
+        return out, _reg(dx, ds, dr, gaussians.alive.float())
+
+
+class MLPNonRigid(_CondDeformBase):
+    """The pose-conditioned MLP on the normalised canonical positions."""
+
+    def __init__(self, mlp_cfg: dict, **kw):
+        super().__init__(**kw)
+        self.mlp = cond_mlp_from_cfg(3, self.cond_dim, 10 + self.feature_dim,
+                                     mlp_cfg, kw.get('generator'))
+
+    def forward(self, gaussians: Gaussians, camera, iteration: int,
+                latent_idx: int, nr_cache=None):
+        pose_feat = self._pose_feat(camera, latent_idx)
+        xyz_norm = self.aabb.normalize(gaussians.get_xyz, sym=True)
+        deltas = self.mlp(xyz_norm, cond=pose_feat)
+        return self._finish(gaussians, deltas, iteration)
+
+
+class HashGridNonRigid(_CondDeformBase):
+    def __init__(self, mlp_cfg: dict, hashgrid_cfg: dict, **kw):
+        super().__init__(**kw)
+        self.hashgrid = make_hashgrid(hashgrid_cfg, kw.get('generator'))
+        self.mlp = cond_mlp_from_cfg(
+            self.hashgrid.n_output_dims, self.cond_dim,
+            10 + self.feature_dim, mlp_cfg, kw.get('generator'))
+
+    def encode(self, xyz):
+        """Hash-grid features of canonical positions (N, 3) -> (N, L*F)."""
+        return self.hashgrid(self.aabb.normalize(xyz, sym=True))
 
     def forward(self, gaussians: Gaussians, camera, iteration: int,
                 latent_idx: int, nr_cache=None):
@@ -118,25 +188,62 @@ class HashGridNonRigid(nn.Module):
         feature = nr_cache if nr_cache is not None \
             else self.encode(gaussians.get_xyz)
         deltas = self.mlp(feature, cond=pose_feat)
-        gate = float(iteration >= self.delay)
+        return self._finish(gaussians, deltas, iteration)
+
+
+class HannwMLPNonRigid(_CondDeformBase):
+    """The Hann-window annealed MLP: deltas zeroed before `kick_in_iter`,
+    the rotation delta the last four columns, no non-rigid feature."""
+
+    def __init__(self, mlp_cfg: dict, kick_in_iter: int = 3000,
+                 full_band_iter: int = 10000, **kw):
+        super().__init__(**kw)
+        self.kick_in_iter = kick_in_iter
+        self.mlp = HannwCondMLP(
+            dim_in=3, dim_cond=self.cond_dim, dim_out=10,
+            n_neurons=mlp_cfg['n_neurons'],
+            n_hidden_layers=mlp_cfg['n_hidden_layers'],
+            kick_in_iter=kick_in_iter, full_band_iter=full_band_iter,
+            skip_in=tuple(mlp_cfg.get('skip_in', ())),
+            cond_in=tuple(mlp_cfg.get('cond_in', ())),
+            multires=mlp_cfg.get('multires', 0),
+            generator=kw.get('generator'))
+
+    def forward(self, gaussians: Gaussians, camera, iteration: int,
+                latent_idx: int, nr_cache=None):
+        pose_feat = self._pose_feat(camera, latent_idx)
+        xyz_norm = self.aabb.normalize(gaussians.get_xyz, sym=True)
+        deltas = self.mlp(xyz_norm, iteration, cond=pose_feat)
+        deltas = deltas * float(iteration >= self.kick_in_iter)
         out, dx, ds, dr = _apply_deltas(
-            gaussians, deltas[:, :3], deltas[:, 3:6], deltas[:, 6:10],
-            self.scale_offset, self.rot_offset, gate)
-        if self.feature_dim > 0:
-            out = out.replace(non_rigid_feature=gate * deltas[:, 10:])
+            gaussians, deltas[:, :3], deltas[:, 3:6], deltas[:, -4:],
+            self.scale_offset, self.rot_offset, 1.0)
         return out, _reg(dx, ds, dr, gaussians.alive.float())
 
 
 def get_non_rigid(cfg: dict, metadata: dict, generator=None):
-    if cfg['name'] != 'hashgrid':
-        raise ValueError(f"non-rigid deformer {cfg['name']!r} is not part "
-                         "of the render path's configuration (hashgrid)")
+    """The deformer `cfg['name']` names, with the JAX package's defaults
+    for the keys a config omits."""
+    name = cfg['name']
+    if name == 'identity':
+        return IdentityNonRigid(feature_dim=cfg.get('feature_dim', 0))
     n_frames = max(len(metadata.get('frame_dict') or {}), 1)
-    return HashGridNonRigid(
-        aabb=metadata['aabb'], mlp_cfg=dict(cfg['mlp']),
-        hashgrid_cfg=dict(cfg['hashgrid']),
-        latent_dim=cfg.get('latent_dim', 0), n_frames=n_frames,
-        feature_dim=cfg.get('feature_dim', 0), delay=cfg.get('delay', 0),
-        scale_offset=cfg['scale_offset'], rot_offset=cfg['rot_offset'],
-        pose_encoder_cfg=dict(cfg.get('pose_encoder', {}) or {}),
-        generator=generator)
+    common = dict(aabb=metadata['aabb'], latent_dim=cfg.get('latent_dim', 0),
+                  n_frames=n_frames, feature_dim=cfg.get('feature_dim', 0),
+                  delay=cfg.get('delay', 0),
+                  scale_offset=cfg.get('scale_offset', 'logit'),
+                  rot_offset=cfg.get('rot_offset', 'add'),
+                  pose_encoder_cfg=dict(cfg.get('pose_encoder', {}) or {}),
+                  generator=generator)
+    if name == 'mlp':
+        return MLPNonRigid(mlp_cfg=dict(cfg['mlp']), **common)
+    if name == 'hashgrid':
+        return HashGridNonRigid(mlp_cfg=dict(cfg['mlp']),
+                                hashgrid_cfg=dict(cfg['hashgrid']), **common)
+    if name == 'hannw_mlp':
+        emb = cfg['mlp']['embedder']
+        return HannwMLPNonRigid(mlp_cfg=dict(cfg['mlp']),
+                                kick_in_iter=emb['kick_in_iter'],
+                                full_band_iter=emb['full_band_iter'],
+                                **common)
+    raise ValueError(f"unknown non-rigid deformer: {name}")

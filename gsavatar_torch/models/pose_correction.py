@@ -1,12 +1,12 @@
-"""Per-frame SMPL pose refinement: direct optimisation.
+"""Per-frame SMPL pose refinement: none, or direct optimisation.
 
-Counterpart of `gsavatar/models/pose_correction.py:DirectPoseOptimization`:
+Counterpart of `gsavatar/models/pose_correction.py`. `NoPoseCorrection`
+passes the camera through and adds no regularizer. `DirectPoseOptimization`:
 per-frame tables of root_orient / pose_body / pose_hand / trans plus shared
 betas; SMPL LBS and the star-pose transform give updated (rots, Jtrs,
 bone_transforms) for the camera. The delay gate and the "frame not in
 frame_dict" skip are one blend `gate * new + (1 - gate) * old` with
-`gate = in_frame_dict * (iteration >= delay)`, as in the JAX package. The
-'none' variant comes with a later slice."""
+`gate = in_frame_dict * (iteration >= delay)`, as in the JAX package."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,6 +15,11 @@ from torch import nn
 
 from gsavatar_torch.smpl import lbs as smpl_lbs
 from gsavatar_torch.smpl.vitruvian import get_02v_bone_transforms_torch
+
+
+class NoPoseCorrection(nn.Module):
+    def forward(self, camera, iteration: int):
+        return camera, {}
 
 
 class DirectPoseOptimization(nn.Module):
@@ -88,11 +93,14 @@ class DirectPoseOptimization(nn.Module):
 
 
 def get_pose_correction(cfg: dict, metadata: dict, assets):
-    if cfg['name'] != 'direct':
-        raise ValueError(f"pose correction {cfg['name']!r} is not part of "
-                         "the render path's configuration (direct)")
-    return DirectPoseOptimization(
-        assets, init_root_orient=metadata['root_orient'],
-        init_pose_body=metadata['pose_body'],
-        init_pose_hand=metadata['pose_hand'], init_trans=metadata['trans'],
-        init_betas=metadata['betas'], delay=cfg.get('delay', 0))
+    name = cfg['name']
+    if name == 'none':
+        return NoPoseCorrection()
+    if name == 'direct':
+        return DirectPoseOptimization(
+            assets, init_root_orient=metadata['root_orient'],
+            init_pose_body=metadata['pose_body'],
+            init_pose_hand=metadata['pose_hand'],
+            init_trans=metadata['trans'], init_betas=metadata['betas'],
+            delay=cfg.get('delay', 0))
+    raise ValueError(f"unknown pose correction: {name}")

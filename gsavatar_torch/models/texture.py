@@ -1,10 +1,14 @@
-"""Colour decoding: the latent MLP.
+"""Colour decoding: spherical harmonics or the latent MLP.
 
-Counterpart of `gsavatar/models/texture.py:ColorMLP` and `_view_dirs`:
-per-Gaussian feature ++ SH bases of the canonical view direction ++
-non-rigid feature ++ per-frame latent -> MLP -> sigmoid RGB. The SH
-texture and the optional xyz / covariance / normal inputs come with a later
-slice."""
+Counterpart of `gsavatar/models/texture.py`, selected by `cfg['name']`:
+* `SH2RGB` ('sh2rgb' or 'sh'): max(SH(active degree) at the view
+  direction + 0.5, 0), the plain 3DGS colour;
+* `ColorMLP` ('mlp'): per-Gaussian feature ++ the optional normalised
+  position, covariance and quasi-normal ++ SH bases of the view direction
+  ++ non-rigid feature ++ per-frame latent -> MLP -> sigmoid RGB.
+Both read the view direction through `_view_dirs`: rotated back into the
+canonical frame when asked to and when a rigid transform exists, then by
+the training-time view-noise rotation."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,6 +19,7 @@ from torch import nn
 from gsavatar_torch.core.gaussians import Gaussians
 from gsavatar_torch.ops import sh as sh_ops
 from gsavatar_torch.utils import transforms as T
+from gsavatar_torch.utils.aabb import AABB
 from .mlp import VanillaCondMLP
 
 
@@ -33,18 +38,40 @@ def _view_dirs(gaussians: Gaussians, camera, cano_view_dir: bool,
                      + 1e-12)
 
 
+class SH2RGB(nn.Module):
+    def __init__(self, cano_view_dir: bool = False):
+        super().__init__()
+        self.cano_view_dir = cano_view_dir
+
+    def forward(self, gaussians: Gaussians, camera, latent_idx=None,
+                view_noise_rot=None):
+        shs = gaussians.get_features.transpose(1, 2)      # (N, 3, coeffs)
+        dirs = _view_dirs(gaussians, camera, self.cano_view_dir,
+                          view_noise_rot)
+        rgb = sh_ops.eval_sh(gaussians.active_sh_degree, shs, dirs)
+        return torch.clamp_min(rgb + 0.5, 0.0)
+
+
 class ColorMLP(nn.Module):
-    def __init__(self, feature_dim: int = 32, sh_degree: int = 3,
-                 cano_view_dir: bool = True, non_rigid_dim: int = 16,
-                 latent_dim: int = 16, n_frames: int = 1,
+    def __init__(self, feature_dim: int = 32, use_xyz: bool = False,
+                 use_cov: bool = False, use_normal: bool = False,
+                 sh_degree: int = 3, cano_view_dir: bool = True,
+                 non_rigid_dim: int = 16, latent_dim: int = 16,
+                 n_frames: int = 1, aabb: Optional[AABB] = None,
                  mlp_cfg: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.use_xyz = use_xyz
+        self.use_cov = use_cov
+        self.use_normal = use_normal
         self.sh_degree = sh_degree
         self.cano_view_dir = cano_view_dir
         self.non_rigid_dim = non_rigid_dim
         self.latent_dim = latent_dim
-        dim_in = (feature_dim
+        if use_xyz:
+            # a float buffer, as the JAX package's 'subject' constant
+            self.aabb = aabb.copy()
+        dim_in = (feature_dim + 3 * use_xyz + 6 * use_cov + 3 * use_normal
                   + ((sh_degree + 1) ** 2 - 1 if sh_degree > 0 else 0)
                   + non_rigid_dim + latent_dim)
         if latent_dim > 0:
@@ -66,11 +93,28 @@ class ColorMLP(nn.Module):
         feats = gaussians.get_features[..., 0]            # (N, feature_dim)
         n = feats.shape[0]
         parts = [feats]
+        if self.use_xyz:
+            parts.append(self.aabb.normalize(gaussians.get_xyz, sym=True))
+        if self.use_cov:
+            parts.append(gaussians.get_covariance())
+        if self.use_normal:
+            # the rotation's column along the smallest scale
+            rot = T.quat_to_rotmat(gaussians.params.rotation)
+            amin = torch.argmin(gaussians.params.scaling, dim=1)
+            parts.append(torch.gather(
+                rot, 2, amin[:, None, None].expand(-1, 3, 1))[..., 0])
         if self.sh_degree > 0:
             dirs = _view_dirs(gaussians, camera, self.cano_view_dir,
                               view_noise_rot)
             parts.append(sh_ops.eval_sh_bases(self.sh_degree, dirs)[:, 1:])
         if self.non_rigid_dim > 0:
+            if gaussians.non_rigid_feature is None:
+                raise ValueError(
+                    f"the texture takes a non-rigid feature of "
+                    f"{self.non_rigid_dim} columns, but the non-rigid "
+                    f"deformer gives none (the identity deformer without a "
+                    f"feature_dim, or hannw_mlp): pair it with a texture of "
+                    f"non_rigid_dim 0 (texture=sh)")
             parts.append(gaussians.non_rigid_feature)
         if self.latent_dim > 0:
             parts.append(self.latent.weight[latent_idx][None].expand(
@@ -79,15 +123,20 @@ class ColorMLP(nn.Module):
 
 
 def get_texture(cfg: dict, metadata: dict, generator=None):
-    extra = [k for k in ('use_xyz', 'use_cov', 'use_normal') if cfg.get(k)]
-    if cfg['name'] != 'mlp' or extra:
-        raise ValueError(f"texture {cfg['name']!r} with {extra} is not part "
-                         "of the render path's configuration (mlp)")
-    n_frames = max(len(metadata.get('frame_dict') or {}), 1)
-    return ColorMLP(
-        feature_dim=cfg['feature_dim'], sh_degree=cfg.get('sh_degree', 0),
-        cano_view_dir=cfg.get('cano_view_dir', False),
-        non_rigid_dim=cfg.get('non_rigid_dim', 0),
-        latent_dim=cfg.get('latent_dim', 0), n_frames=n_frames,
-        mlp_cfg=dict(cfg.get('mlp', {}) or {}),
-        generator=generator)
+    name = cfg['name']
+    if name in ('sh2rgb', 'sh'):
+        return SH2RGB(cano_view_dir=cfg.get('cano_view_dir', False))
+    if name == 'mlp':
+        n_frames = max(len(metadata.get('frame_dict') or {}), 1)
+        return ColorMLP(
+            feature_dim=cfg['feature_dim'],
+            use_xyz=cfg.get('use_xyz', False),
+            use_cov=cfg.get('use_cov', False),
+            use_normal=cfg.get('use_normal', False),
+            sh_degree=cfg.get('sh_degree', 0),
+            cano_view_dir=cfg.get('cano_view_dir', False),
+            non_rigid_dim=cfg.get('non_rigid_dim', 0),
+            latent_dim=cfg.get('latent_dim', 0), n_frames=n_frames,
+            aabb=metadata.get('aabb'),
+            mlp_cfg=dict(cfg.get('mlp', {}) or {}), generator=generator)
+    raise ValueError(f"unknown texture: {name}")

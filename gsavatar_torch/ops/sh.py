@@ -1,6 +1,9 @@
-"""Real spherical-harmonics bases (degrees 0..4).
+"""Real spherical harmonics (degrees 0..4).
 
-Counterpart of `gsavatar/ops/sh.py`: the same constants and basis order."""
+Counterpart of `gsavatar/ops/sh.py`: the same constants and basis order.
+`eval_sh` takes coefficients laid out [..., C, >= (deg+1)^2] and sums
+only the first (deg+1)^2, so the coefficients above the active degree get
+a zero gradient."""
 from __future__ import annotations
 
 import torch
@@ -48,5 +51,17 @@ def eval_sh_bases(deg: int, dirs):
     return torch.stack(out, dim=-1)
 
 
+def eval_sh(deg: int, sh, dirs):
+    """The SH-coded function at unit directions: sh [..., C, >= (deg+1)^2],
+    dirs [..., 3] -> [..., C]."""
+    basis = eval_sh_bases(deg, dirs)
+    n = basis.shape[-1]
+    return (sh[..., :n] * basis[..., None, :]).sum(-1)
+
+
 def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    return sh * C0 + 0.5

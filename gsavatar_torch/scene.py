@@ -96,7 +96,11 @@ class ConverterOptimizer:
              frozen_grads: Dict[str, torch.Tensor] = None
              ) -> ConverterOptState:
         """Updates `params` in place; returns the new state.
-        `frozen_grads` count in the clip's global norm only."""
+        `frozen_grads` count in the clip's global norm only. A group may be
+        empty (the rigid group under `rigid=identity`), and so may the
+        whole converter (the plain-3DGS variant has no parameter)."""
+        if not params:
+            return ConverterOptState(mu={}, nu={}, count=state.count + 1)
         if self.grad_clip > 0:
             every = list(grads.values()) + list((frozen_grads or {}).values())
             g_norm = torch.sqrt(sum((g * g).sum() for g in every))

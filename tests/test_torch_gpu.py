@@ -440,12 +440,12 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             K4.run(bad)
 
 
-def _small_train_scene(device):
+def _small_train_scene(device, overrides=()):
     from gsavatar_torch.config import load_config
     from gsavatar_torch.scene import Scene
     cfg = load_config(SMALL + ["dataset.n_target_gaussians=512",
                                "opt.skinning_pool_size=2048",
-                               "opt.n_reg_pts=128"])
+                               "opt.n_reg_pts=128"] + list(overrides))
     scene = Scene(cfg, seed=0, device=device)
     return cfg, scene, scene.init_state()
 
@@ -487,6 +487,70 @@ def test_small_train_step_on_the_card_matches_the_cpu(cuda):
     leaves.append(('means2d', g_g['means2d'], g_c['means2d']))
     for name, a, b in leaves:
         a, b = a.double().cpu().reshape(-1), b.double().reshape(-1)
+        if not float(b.abs().max()) > 0.0:
+            continue
+        rel = float((a - b).abs().mean()) / max(float(b.abs().max()), 1e-3)
+        cos = float(a @ b) / (float(a.norm()) * float(b.norm()))
+        assert cos > 0.999 and rel < 1e-3, (name, cos, rel)
+
+
+# the model variants of chip_smoke.py's phase 12, at their published widths
+VARIANTS = {
+    'mlp': ['non_rigid=mlp'],
+    'hannw_sh': ['non_rigid=hannw_mlp', 'texture=sh'],
+    'smpl_nn': ['rigid=smpl_nn'],
+    'distill': ['model.deformer.rigid.distill=true'],
+    '3dgs': ['texture=sh', 'non_rigid=identity', 'rigid=identity',
+             'pose_correction=none'],
+    'wide_tex': ['texture=mlp'],
+}
+
+
+@pytest.mark.parametrize('variant', sorted(VARIANTS))
+def test_small_variant_step_on_the_card_matches_the_cpu(cuda, variant):
+    """One forward and backward of a model variant's training step from
+    the same state, camera and draws at iteration 12000 (every gate open,
+    SH degree 3 where the arena holds SH): the loss terms, every gradient
+    leaf, and the K2 and K3 launches (K3 five times without the hash
+    grid's table gradient)."""
+    from gsavatar_torch.train import draw, loss_weights, make_grad_fn
+    ov = VARIANTS[variant]
+    cfg, cpu, cpu_state = _small_train_scene('cpu', ov)
+    _, gpu, gpu_state = _small_train_scene(cuda, ov)
+    gpu.converter.load_state_dict(cpu.converter.state_dict())
+    gpu_state.gauss_params = cpu_state.gauss_params.map(lambda x: x.to(cuda))
+    gpu_state.gauss_aux = cpu_state.gauss_aux.map(lambda x: x.to(cuda))
+    cam = cpu.train_dataset[0]
+    draws = draw(cpu, cpu_state.generator)
+    it = 12000
+    deg = cpu.active_sh_degree(it)
+    w = loss_weights(cfg, it)
+    bucket = cpu.bucket_for(int(cpu_state.gauss_aux.alive.sum()))
+    counts = (composite.composite_pairs_bwd.launches,
+              segsum_blocked.segment_sum_sorted_blocked.launches)
+    m_g, _, g_g = make_grad_fn(gpu)(
+        gpu_state, cam.to(cuda).replace(image=cam.image.to(cuda),
+                                        mask=cam.mask.to(cuda)),
+        it, w, draws.to(cuda), deg, bucket, gpu.raster_config)
+    torch.cuda.synchronize()
+    k3 = 6 if cfg['model']['deformer']['non_rigid']['name'] == 'hashgrid' \
+        else 5
+    assert composite.composite_pairs_bwd.launches == counts[0] + 1
+    assert segsum_blocked.segment_sum_sorted_blocked.launches == counts[1] + k3
+    m_c, _, g_c = make_grad_fn(cpu)(cpu_state, cam, it, w, draws, deg,
+                                    bucket, cpu.raster_config)
+    assert set(m_g) == set(m_c)
+    for k, v in m_c.items():
+        if k.startswith('loss/') and abs(float(v)) > 1e-9:
+            assert abs(float(m_g[k]) - float(v)) <= 1e-4 * abs(float(v)), k
+    leaves = [(k, g_g['conv'][k], v) for k, v in g_c['conv'].items()]
+    leaves += [(f, getattr(g_g['gauss'], f), getattr(g_c['gauss'], f))
+               for f in ('xyz', 'features_dc', 'features_rest', 'scaling',
+                         'rotation', 'opacity')]
+    leaves.append(('means2d', g_g['means2d'], g_c['means2d']))
+    for name, a, b in leaves:
+        a, b = a.double().cpu().reshape(-1), b.double().reshape(-1)
+        assert bool(a.isfinite().all()), name
         if not float(b.abs().max()) > 0.0:
             continue
         rel = float((a - b).abs().mean()) / max(float(b.abs().max()), 1e-3)

@@ -6,6 +6,7 @@ caller asks for the CPU, and a kernel library's name follows every source
 it is built from."""
 import ast
 import importlib
+import json
 import pkgutil
 import subprocess
 import sys
@@ -17,6 +18,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gsavatar', 'cv2',
              'PIL')
+# the audit events of starting a process or loading a native library
+AUDITED = ('subprocess.Popen', 'os.posix_spawn', 'os.exec', 'os.system',
+           'os.fork', 'ctypes.dlopen')
 PORT_FILES = sorted((ROOT / 'gsavatar_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py']
 
@@ -41,23 +45,34 @@ def test_no_jax_or_reference_imports(path):
 def test_import_pulls_in_no_jax_triton_or_build():
     """Importing every module of the port, in a fresh interpreter, loads
     no JAX, no gsavatar, no OpenCV or Pillow, no triton, and compiles
-    nothing (neither the kernels nor the JPEG decoder)."""
+    nothing (neither the kernels nor the JPEG decoder): an audit hook in
+    the child records every process it starts and every library it loads
+    while the port's modules are imported, and there must be none. The
+    hook watches the importing process itself, not the shared build
+    directory, which other test workers write into at the same time. The
+    third-party packages the port imports are loaded before the hook is
+    installed: their own start-up (numpy.testing runs lscpu) is not the
+    port's."""
     code = (
-        "import importlib, pkgutil, sys, gsavatar_torch\n"
+        "import importlib, json, pkgutil, sys\n"
+        "import numpy, numpy.testing, scipy.spatial, "
+        "scipy.spatial.transform, torch\n"
+        f"WATCH = {AUDITED!r}\n"
+        "seen = []\n"
+        "sys.addaudithook(lambda ev, args: seen.append([ev, repr(args)]) "
+        "if ev in WATCH else None)\n"
+        "import gsavatar_torch\n"
         "for m in pkgutil.walk_packages(gsavatar_torch.__path__, "
         "'gsavatar_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         f"{FORBIDDEN + ('triton',)!r})\n"
-        "print(bad)\n")
-    build = ROOT / 'build'
-    before = sorted(build.iterdir()) if build.exists() else []
+        "print(json.dumps({'modules': bad, 'events': seen}))\n")
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == '[]'
-    after = sorted(build.iterdir()) if build.exists() else []
-    assert after == before
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'modules': [], 'events': []}
 
 
 def _tiny_setup():

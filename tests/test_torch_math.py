@@ -211,27 +211,42 @@ CODE_DEFAULTS = {'opt.bucket_granularity': 4096,    # gsavatar/scene.py:253
 DATASET_GROUPS = ['synthetic'] + sorted(tconfig.DATASETS)
 
 
+# every choice of the model and option groups, one at a time, and the
+# plain-3DGS baseline of the JAX package's variant test
+GROUP_CHOICES = [[f'{g}={c}'] for g in sorted(tconfig.GROUPS)
+                 for c in sorted(tconfig.GROUPS[g])] + [
+    ['texture=sh', 'non_rigid=identity', 'rigid=identity',
+     'pose_correction=none'],
+    ['non_rigid=hannw_mlp', 'texture=sh', 'option=no_val']]
+
+
+def _assert_matches(got, want, label):
+    for key, value in _leaves(got):
+        if key in CODE_DEFAULTS:
+            assert value == CODE_DEFAULTS[key], key
+            continue
+        node = want
+        for part in key.split('.'):
+            node = node[part]
+        node = node.to_dict() if hasattr(node, 'to_dict') else node
+        assert value == node, (label, key)
+
+
 def test_config_matches_yaml_defaults():
     """Every key of the port's config equals the JAX package's composed
     config for each dataset group the port serves (synthetic and the
     eleven real subjects, with their `opt:` keys and the
     `${dataset.val_views}` interpolation resolved after the overrides),
-    with overrides applied alike, or the default the JAX code reads it
-    with."""
+    and for every choice of the pose_correction, texture, rigid, non_rigid
+    and option groups (the model block whole, `${...}` resolved across
+    groups: `non_rigid.feature_dim` follows `texture.non_rigid_dim`), with
+    overrides applied alike, or the default the JAX code reads it with."""
     ov = ["dataset.img_hw=[540,540]", "model.gaussian.capacity=131072",
           "dataset.val_views=['5','6']"]
     for group in DATASET_GROUPS:
         want = j_load_config(overrides=[f"dataset={group}"] + ov)
         got = tconfig.load_config([f"dataset={group}"] + ov)
-        for key, value in _leaves(got):
-            if key in CODE_DEFAULTS:
-                assert value == CODE_DEFAULTS[key], key
-                continue
-            node = want
-            for part in key.split('.'):
-                node = node[part]
-            node = node.to_dict() if hasattr(node, 'to_dict') else node
-            assert value == node, (group, key)
+        _assert_matches(got, want, group)
         if group.startswith('zjumocap'):
             assert got['dataset']['test_views']['view'] == ['5', '6']
         if group != 'synthetic':
@@ -241,6 +256,18 @@ def test_config_matches_yaml_defaults():
                 k for k, _ in _leaves(want['dataset'].to_dict())} - {'mode'}
     assert tconfig.load_config(["dataset=ps_female_3"])['opt'][
         'densify_grad_threshold'] == 0.0001
+    for choices in GROUP_CHOICES:
+        want = j_load_config(overrides=["dataset=synthetic"] + choices + ov)
+        got = tconfig.load_config(choices + ov)
+        _assert_matches(got, want, choices)
+        assert got['model'] == want['model'].to_dict(), choices
+        assert got['name'] == want['name'], choices
+        assert got['dataset']['train_smpl'] == want['dataset']['train_smpl']
+    sh = tconfig.load_config(['texture=sh'])
+    assert sh['model']['gaussian']['use_sh'] is True
+    assert sh['model']['deformer']['non_rigid']['feature_dim'] == 0
+    assert tconfig.load_config(['model.deformer.rigid.distill=true'])[
+        'model']['deformer']['rigid']['distill'] is True
 
 
 def test_synthetic_is_the_port_default():
@@ -253,9 +280,19 @@ def test_synthetic_is_the_port_default():
 
 
 def test_config_groups_take_only_the_default():
-    with pytest.raises(NotImplementedError):
-        tconfig.load_config(["texture=sh"])
-    with pytest.raises(NotImplementedError):
+    """Each group admits exactly the choices the JAX package has a file
+    for (`gsavatar/config/configs/<group>/`); any other choice raises,
+    and naming a group's default changes nothing."""
+    import os
+    from gsavatar.config.config import DEFAULT_CONFIG_DIR
+    for group, choices in tconfig.GROUPS.items():
+        files = {f[:-5] for f in os.listdir(os.path.join(DEFAULT_CONFIG_DIR,
+                                                         group))}
+        assert set(choices) == files, group
+        assert tconfig.DEFAULT_GROUPS[group] in choices
+    with pytest.raises(ValueError):
+        tconfig.load_config(["texture=foo"])
+    with pytest.raises(ValueError):
         tconfig.load_config(["dataset=zjumocap_999_mono"])
     assert tconfig.load_config(["texture=shallow_mlp"]) == \
         tconfig.load_config()

@@ -55,15 +55,17 @@ def random_conv_params(shapes, metadata, seed=0):
 
 class JaxAvatar:
     """The JAX package's tiny avatar: datasets, converter, weights, arena,
-    a camera and the hash-grid cache."""
+    a camera and the hash-grid cache; `overrides` (config groups and dotted
+    keys) select a model variant."""
 
-    def __init__(self, frame: int = 1, seed: int = 0):
+    def __init__(self, frame: int = 1, seed: int = 0, overrides=()):
         from gsavatar.config import load_config
         from gsavatar.core import gaussians as G
         from gsavatar.data.synthetic import SyntheticDataset
         from gsavatar.models.converter import build_converter, compute_nr_cache
 
-        self.cfg = load_config(overrides=["dataset=synthetic"] + TINY)
+        self.cfg = load_config(overrides=["dataset=synthetic"] + TINY
+                               + list(overrides))
         self.train = SyntheticDataset(self.cfg.dataset, 'train')
         self.predict = SyntheticDataset(self.cfg.dataset, 'predict')
         h, w = self.cfg.dataset.img_hw
@@ -75,14 +77,17 @@ class JaxAvatar:
         pts, cols = self.train.readPointCloud()
         g = self.cfg.model.gaussian
         self.gauss_params, self.gauss_aux = jax.jit(
-            lambda p, c: G.create_from_pcd(p, c, int(g.capacity), False,
-                                           3, int(g.feature_dim)))(
+            lambda p, c: G.create_from_pcd(
+                p, c, int(g.capacity), bool(g.use_sh), int(g.sh_degree),
+                int(g.get('feature_dim', 32))))(
             jnp.asarray(pts), jnp.asarray(cols))
         self.gview = G.make_view(self.gauss_params, self.gauss_aux,
-                                 use_sh=False)
-        shapes = jax.eval_shape(lambda: self.converter.init(
-            jax.random.PRNGKey(0), self.gview, self.camera, 0))['params']
-        self.params = random_conv_params(shapes, self.train.metadata, seed)
+                                 use_sh=bool(g.use_sh))
+        # the variables' structure: 'params' and the 'subject' constants
+        self.shapes = jax.eval_shape(lambda: self.converter.init(
+            jax.random.PRNGKey(0), self.gview, self.camera, 0))
+        self.params = random_conv_params(self.shapes.get('params', {}),
+                                         self.train.metadata, seed)
         self.variables = {'params': jax.tree.map(jnp.asarray, self.params)}
         # eagerly, as the JAX package's evaluate and InferenceScene do (under
         # jit XLA rounds the AABB normalization differently by an ulp)
@@ -94,14 +99,14 @@ class TorchAvatar:
     """The port's tiny avatar, its weights and arena carried over from a
     JaxAvatar."""
 
-    def __init__(self, ja: JaxAvatar, frame: int = 1):
+    def __init__(self, ja: JaxAvatar, frame: int = 1, overrides=()):
         from gsavatar_torch import convert
         from gsavatar_torch.config import load_config
         from gsavatar_torch.core import gaussians as G
         from gsavatar_torch.data.synthetic import SyntheticDataset
         from gsavatar_torch.inference import AvatarState
 
-        self.cfg = load_config(TINY)
+        self.cfg = load_config(TINY + list(overrides))
         self.train = SyntheticDataset(self.cfg['dataset'], 'train')
         self.predict = SyntheticDataset(self.cfg['dataset'], 'predict')
         self.camera = self.predict[frame]
@@ -110,7 +115,8 @@ class TorchAvatar:
             jax.tree.map(np.asarray, ja.gauss_aux))
         self.state = AvatarState(params, aux,
                                  convert.converter_state(ja.params))
-        self.gview = G.make_view(params, aux, use_sh=False)
+        self.gview = G.make_view(
+            params, aux, use_sh=bool(self.cfg['model']['gaussian']['use_sh']))
 
 
 def close(a, b, rtol, atol, name=''):
