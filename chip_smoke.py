@@ -1,6 +1,7 @@
 """On-card smoke test of gsavatar_torch: the avatar render path, the
 training step, the full training run with evaluation, the narrow-row
-probe, the real-format data path and the model variants.
+probe, the real-format data path, the model variants and the serving
+apps.
 
     python3 chip_smoke.py
 
@@ -77,7 +78,21 @@ them. Phases, any failure ends the run with a non-zero exit:
    step median, frame mean and peak memory, the converter's forward
    under the profiler (and the voxel's build, or `nn_index` with the
    share of its indices equal to the CPU's), and a small step of the
-   variant on the card against the CPU's.
+   variant on the card against the CPU's;
+13. the serving apps: the last checkpoint phase 9 writes (the resumed
+   run's) and an SMPL npz of the synthetic body through `InferenceScene.from_smpl_npz` (its render equal
+   bit for bit to `from_checkpoint`'s), a seeded CLIFF-format motion of 30
+   frames, then each app with the launch counts set to 0 just before and
+   read just after: `render_series` (30 frames at 512^2, K1 30, the PNGs
+   read back), `body_replace` over the 1080^2 fixture frame (10 frames at
+   540^2, K1 10; the float resize and the composite on the card equal to
+   the CPU's bit for bit, frame 0 within the render gates of the CPU
+   path), the AR loop over the 1024^2 fixture frame with seeded board
+   poses (K1 10), and `capture_and_record` (8 frames at 512^2, JPEG and
+   PNG) whose tree the ZJU-MoCap loader reads back for 10 training steps
+   (K1 10, K2 10, K3 60); every render finite, in [0, 1] and with the
+   avatar in view; each app's ms per frame and its split (the LBS,
+   `render_frame`, resize and composite, the file writes).
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
@@ -1753,6 +1768,329 @@ def variant_phase(counters, gpu):
         variant_run(name, list(overrides), counters, gpu)
 
 
+# phase 13: the serving apps, from the last checkpoint phase 9 writes and an
+# SMPL npz of the synthetic body, driven by a CLIFF-format motion made from SEED
+SERVE_MOTION = 30        # frames of the motion npz
+SERIES_FRAMES = 30       # render_series at 512^2
+BODY_FRAMES = 10         # body_replace over the 1080^2 fixture frame
+AR_FRAMES = 10           # the AR loop over the 1024^2 fixture frame
+CAPTURE_FRAMES = 8       # capture_and_record at 512^2
+CAPTURE_STEPS = 10       # training steps on the captured tree
+SERVE_HW = 512
+MIN_COVER = 0.01         # alpha > 0.5 on at least this share of each frame
+# a decoded capture JPEG against the image written. A quality-95 4:2:0
+# file (the bytes cv2 writes, tests/test_torch_jpeg.py) is off by more than
+# 2 levels at sharp colour edges, so the share within 2 levels and the
+# largest error are printed, not gated
+JPEG_PSNR = 40.0
+JPEG_LEVELS = 2
+RENDER_MAX = 1.0 + 1e-5  # a render's colour: 1 plus the f32 rounding of
+                         # its compositing sums
+
+
+def motion_npz(path):
+    """A CLIFF-format motion: SERVE_MOTION frames of small seeded body
+    rotations, zero shape, a global_t 4 m in front of the camera and
+    centred on the body, focal 1000."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13)
+    pose = (0.1 * rng.standard_normal((SERVE_MOTION, 72))).astype(np.float32)
+    pose[:, :3] = 0.0
+    global_t = (np.array([0.0, 0.2, 4.0])
+                + 0.02 * rng.standard_normal((SERVE_MOTION, 3)))
+    np.savez(path, pose=pose, shape=np.zeros((SERVE_MOTION, 10), np.float32),
+             global_t=global_t.astype(np.float32), focal_l=np.float32(1000.0))
+    return path
+
+
+def board_feed(frame, n):
+    """n (frame, board pose) pairs: small seeded rotations, the camera
+    about 0.2 m (t_scale 4) behind the board."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    rng = np.random.default_rng(SEED + 14)
+    return [(frame, (Rotation.from_rotvec(0.02 * rng.standard_normal(3))
+                     .as_matrix(),
+                     np.array([0.0, 0.0, 0.05])
+                     + 0.01 * rng.standard_normal(3))) for _ in range(n)]
+
+
+class ServeProbe:
+    """Per-frame host times (synced) of one app run, by part: the pose
+    (`parse` and `camera_pose_fields`: the LBS), `render_frame`, the
+    resize and composite, and the PNG or JPEG write. A frame starts at the
+    first parse of a new motion index. Keeps each render's checks and the
+    arrays written as JPEG."""
+
+    PARTS = ('pose', 'render', 'composite', 'write')
+
+    def __init__(self):
+        self.frames, self.renders, self.jpegs = [], [], []
+        self.first = None
+        self._depth = 0
+        self._undo = []
+
+    def _wrap(self, fn, part, on_done=None):
+        def timed_part(*args, **kw):
+            outer = self._depth == 0
+            self._depth += 1
+            try:
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                self._depth -= 1
+            if outer:
+                if part == 'pose' and (not self.frames
+                                       or self.frames[-1]['idx'] != args[0]):
+                    self.frames.append(dict({p: 0.0 for p in self.PARTS},
+                                            idx=args[0], start=t0))
+                self.frames[-1][part] += ms
+                if on_done:
+                    on_done(args, out)
+            return out
+        return timed_part
+
+    def _set(self, obj, name, value):
+        own = name in vars(obj)
+        self._undo.append((obj, name, own, vars(obj).get(name)))
+        setattr(obj, name, value)
+
+    def install(self, scene, series):
+        from gsavatar_torch import native
+        from gsavatar_torch.apps import ar_render, body_replace
+        from gsavatar_torch.utils import png
+
+        def rendered(args, pkg):
+            r, a = pkg.render, pkg.opacity_render
+            if self.first is None:
+                self.first = (r.clone(), a.clone())
+            self.renders.append((bool(r.isfinite().all()), float(r.min()),
+                                 float(r.max()),
+                                 float((a > 0.5).float().mean())))
+        self._set(series, 'parse', self._wrap(series.parse, 'pose'))
+        self._set(series, 'camera_pose_fields',
+                  self._wrap(series.camera_pose_fields, 'pose'))
+        self._set(scene, 'render_frame',
+                  self._wrap(scene.render_frame, 'render', rendered))
+        comp = self._wrap(body_replace.composite_frame, 'composite')
+        self._set(body_replace, 'composite_frame', comp)
+        self._set(ar_render, 'composite_frame', comp)
+        self._set(png, 'write_png', self._wrap(png.write_png, 'write'))
+        self._set(native, 'write_jpeg', self._wrap(
+            native.write_jpeg, 'write',
+            lambda args, out: self.jpegs.append((args[0], args[1].copy()))))
+
+    def remove(self, end):
+        for obj, name, own, old in reversed(self._undo):
+            if own:
+                setattr(obj, name, old)
+            else:
+                delattr(obj, name)
+        self._undo = []
+        for f, nxt in zip(self.frames, self.frames[1:] + [{'start': end}]):
+            f['total'] = (nxt['start'] - f['start']) * 1e3
+
+    def summary(self):
+        later = self.frames[1:]
+
+        def med(k):
+            v = sorted(f[k] for f in later)
+            return v[len(v) // 2]
+        return {k: med(k) for k in ('total',) + self.PARTS}
+
+
+def run_app(label, fn, scene, series, counters, gpu, want_k1):
+    """One app run under a ServeProbe with the launch counts set to 0 just
+    before and read just after; checks K1's count, each render finite,
+    in [0, RENDER_MAX] and covering MIN_COVER; prints the ms per frame and
+    its split with the card's name and power limit."""
+    probe = ServeProbe()
+    probe.install(scene, series)
+    try:
+        out, launches = driven(counters, fn)
+    finally:
+        probe.remove(time.perf_counter())
+    want = {'composite_fwd': want_k1, 'composite_bwd': 0, 'segsum': 0,
+            'narrow_rows': 0}
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    if len(probe.frames) != want_k1 or len(probe.renders) != want_k1:
+        fail(f"{label}: {len(probe.frames)} frames, {len(probe.renders)} "
+             f"renders")
+    for i, (finite, lo, hi, cover) in enumerate(probe.renders):
+        if not finite or lo < 0.0 or hi > RENDER_MAX:
+            fail(f"{label} frame {i}: render finite {finite}, in "
+                 f"[{lo}, {hi}]")
+        if cover < MIN_COVER:
+            fail(f"{label} frame {i}: alpha > 0.5 on {cover:.4f} of the "
+                 f"pixels (the avatar is not in view)")
+    s = probe.summary()
+    covers = [r[3] for r in probe.renders]
+    log(f"{label} ({gpu}): {want_k1} frames, {s['total']:.3f} ms/frame "
+        f"(median without the first, host clock, synced; first "
+        f"{probe.frames[0]['total']:.1f}): pose (LBS) {s['pose']:.3f}, "
+        f"render_frame {s['render']:.3f}, resize+composite "
+        f"{s['composite']:.3f}, write {s['write']:.3f} ms; alpha > 0.5 on "
+        f"{min(covers):.4f}..{max(covers):.4f} of the pixels; launches "
+        f"{launches}")
+    return out, probe
+
+
+def serving_phase(counters, ckpt, cfg, work, gpu):
+    """Phase 13: the serving apps from phase 9's checkpoint `ckpt` (under
+    its config `cfg`) and an SMPL npz of the synthetic body."""
+    import numpy as np
+    from gsavatar_torch import native
+    from gsavatar_torch.apps import ar_render, body_replace
+    from gsavatar_torch.apps.capture_and_record import capture_and_record
+    from gsavatar_torch.apps.render_series import render_series
+    from gsavatar_torch.camera.live import live_camera
+    from gsavatar_torch.data import load_dataset
+    from gsavatar_torch.data.image_ops import resize_linear
+    from gsavatar_torch.inference import InferenceScene
+    from gsavatar_torch.motion.series import MotionSeries
+    from gsavatar_torch.utils import png
+
+    body = load_dataset(cfg['dataset'], 'train')
+    npz = os.path.join(work, 'smpl.npz')
+    np.savez(npz, minimal_shape=body.metadata['minimal_shape'])
+    motion = motion_npz(os.path.join(work, 'motion.npz'))
+    t0 = time.perf_counter()
+    serve = InferenceScene.from_smpl_npz(cfg, ckpt, npz, assets=body.assets,
+                                         device=DEVICE)
+    log(f"serving scene from {os.path.basename(ckpt)} and an SMPL npz: "
+        f"{time.perf_counter() - t0:.2f} s, {int(serve.gauss_aux.alive.sum())}"
+        f" Gaussians, raster {serve.raster_config.width}^2, iteration "
+        f"{serve.iteration}, frame_dict rows {len(serve.metadata['frame_dict'])}")
+    # the body at the origin for the orbit and the capture, 4 m in front of
+    # the camera (the motion's global_t) for the video and the AR feed
+    orbit = MotionSeries(motion, body.assets, trans=np.zeros(3, np.float32),
+                         device=DEVICE)
+    ahead = MotionSeries(motion, body.assets, device=DEVICE)
+
+    # the npz route equals the checkpoint route, bit for bit
+    ref = InferenceScene.from_checkpoint(cfg, ckpt, device=DEVICE)
+    rots, Jtrs, bt = orbit.camera_pose_fields(0, serve.metadata)
+    cam = live_camera(np.eye(3), [0.0, 0.0, 2.5], width=cfg['dataset'][
+        'img_hw'][1], height=cfg['dataset']['img_hw'][0], rots=rots,
+        Jtrs=Jtrs, bone_transforms=bt, device=DEVICE)
+    # the checkpoint route renders at the checkpoint's iteration, the npz
+    # route at the config's last; both here at the checkpoint's
+    a = serve.render_frame(cam, ref.iteration)
+    b = ref.render_frame(cam)
+    same = torch.equal(a.render, b.render) and torch.equal(
+        a.opacity_render, b.opacity_render)
+    log(f"npz route against the checkpoint route at iteration "
+        f"{ref.iteration}: equal bit for bit {same}, {a.n_pairs} pairs")
+    if not same:
+        fail("the npz route renders differently from the checkpoint route")
+
+    # render_series: 30 frames at 512^2 under orbiting cameras
+    serve512 = InferenceScene.from_smpl_npz(cfg, ckpt, npz,
+                                            assets=body.assets,
+                                            width=SERVE_HW, height=SERVE_HW,
+                                            device=DEVICE)
+    out_dir = os.path.join(work, 'series')
+    frames, _ = run_app(
+        'render_series', lambda: render_series(
+            serve512, orbit, out_dir=out_dir, width=SERVE_HW,
+            height=SERVE_HW, max_frames=SERIES_FRAMES, save_video=False),
+        serve512, orbit, counters, gpu, SERIES_FRAMES)
+    for i, img in enumerate(frames):
+        if not np.array_equal(png.read_png(os.path.join(
+                out_dir, f"{i:06d}.png")), img):
+            fail(f"render_series: {i:06d}.png reads back different")
+
+    # body_replace: 10 frames over the 1080^2 fixture frame
+    with open(os.path.join(FIXTURES, 'digests.json')) as f:
+        spec = json.load(f)
+    video = native.read_jpeg(os.path.join(FIXTURES, spec['ps']['jpeg']))
+    _, probe = run_app(
+        'body_replace', lambda: body_replace.body_replace(
+            serve, ahead, [video] * BODY_FRAMES,
+            out_dir=os.path.join(work, 'body'), save_video=False),
+        serve, ahead, counters, gpu, BODY_FRAMES)
+    render, alpha = probe.first
+    frame_t = torch.as_tensor(video, device=DEVICE)
+    hw = video.shape[:2]
+    for name, x in (('render', render.clamp(0, 1)), ('alpha', alpha)):
+        if not torch.equal(resize_linear(x, hw).cpu(),
+                           resize_linear(x.cpu(), hw)):
+            fail(f"the float resize of the {name} differs from the CPU's")
+    comp = body_replace.composite_frame(render, alpha, frame_t)
+    if not torch.equal(comp.cpu(), body_replace.composite_frame(
+            render.cpu(), alpha.cpu(), frame_t.cpu())):
+        fail("the composite on the card differs from the CPU's")
+    dev_ms = profiled_device_ms(
+        lambda: body_replace.composite_frame(render, alpha, frame_t), 5)
+    log(f"body_replace ({gpu}): resize {render.shape[0]}^2 -> {hw[0]}^2 and "
+        f"composite {dev_ms:.3f} device ms/frame; the float resize and the "
+        f"composite equal the CPU's bit for bit")
+    cpu_scene = InferenceScene.from_smpl_npz(cfg, ckpt, npz,
+                                             assets=body.assets, device='cpu')
+    rots, Jtrs, bt = ahead.camera_pose_fields(0, serve.metadata)
+    K = body_replace.series_K(ahead, hw[1], hw[0])
+    rc = serve.raster_config
+    want = cpu_scene.render_frame(live_camera(
+        np.eye(3, dtype=np.float32), np.zeros(3, np.float32), K=K,
+        width=rc.width, height=rc.height, rots=rots, Jtrs=Jtrs,
+        bone_transforms=bt, device='cpu'))
+    render_gates(render.clamp(0, 1), want.render.clamp(0, 1),
+                 'body_replace frame 0 (CPU path)')
+    render_gates(alpha, want.opacity_render, 'body_replace alpha 0 (CPU path)')
+
+    # the AR loop: 10 seeded board poses over the 1024^2 fixture frame
+    webcam = native.read_jpeg(os.path.join(FIXTURES, spec['zju']['jpeg']))
+    K = body_replace.series_K(ahead, webcam.shape[1], webcam.shape[0])
+    shown, _ = run_app(
+        'ar_loop', lambda: list(ar_render.ar_loop(
+            serve, ahead, board_feed(webcam, AR_FRAMES), K,
+            max_frames=AR_FRAMES, display=False)),
+        serve, ahead, counters, gpu, AR_FRAMES)
+    if len(shown) != AR_FRAMES or shown[0].shape != webcam.shape:
+        fail(f"ar_loop: {len(shown)} composites")
+
+    # capture_and_record into a ZJU-MoCap tree, then 10 training steps on
+    # it. The ZJU-MoCap loader's body is the 6890-vertex template
+    # (find_assets), so the capture's scene takes the template's metadata
+    # (no npz) to write that body's minimal_shape.
+    tree = os.path.join(work, 'capture')
+    capture_scene = InferenceScene.from_smpl_npz(
+        cfg, ckpt, width=SERVE_HW, height=SERVE_HW, device=DEVICE)
+    template = MotionSeries(motion, capture_scene.assets,
+                            trans=np.zeros(3, np.float32), device=DEVICE)
+    _, probe = run_app(
+        'capture_and_record', lambda: capture_and_record(
+            capture_scene, template, out_dir=os.path.join(tree, 'S1'),
+            width=SERVE_HW, height=SERVE_HW, max_frames=CAPTURE_FRAMES),
+        capture_scene, template, counters, gpu, CAPTURE_FRAMES)
+    worst, near, psnrs = 0, 1.0, []
+    for path, img in probe.jpegs:
+        err = np.abs(native.read_jpeg(path).astype(np.int64) - img)
+        psnr = 10 * math.log10(255.0 ** 2 / max(float((err ** 2).mean()),
+                                                1e-12))
+        worst, psnrs = max(worst, int(err.max())), psnrs + [psnr]
+        near = min(near, float((err <= JPEG_LEVELS).mean()))
+        if psnr < JPEG_PSNR:
+            fail(f"{path}: PSNR {psnr:.2f} dB against the image written")
+    log(f"capture JPEGs: {len(probe.jpegs)} decode back at PSNR "
+        f"{min(psnrs):.2f}..{max(psnrs):.2f} dB, at least {near:.5f} of "
+        f"the values within {JPEG_LEVELS} levels, largest error {worst} "
+        f"levels")
+    cfg_z, scene_z, cams = real_scene([
+        'dataset=zjumocap_377_mono', f'dataset.root_dir={tree}',
+        'dataset.subject=S1', "dataset.train_views=['1']",
+        "dataset.val_views=['1']", f'dataset.train_frames=[0,'
+        f'{CAPTURE_FRAMES},1]', f'dataset.test_frames.view=[0,'
+        f'{CAPTURE_FRAMES},1]', 'dataset.n_points=50000'],
+        'captured ZJU-MoCap tree', gpu)
+    if len(cams) != CAPTURE_FRAMES:
+        fail(f"the captured tree loads {len(cams)} frames")
+    real_train(scene_z, cams, CAPTURE_STEPS, counters, 'captured tree', gpu)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
@@ -1853,22 +2191,35 @@ def main():
     # repository ignores, and are removed at the end
     kernels.BUILD.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix='run-', dir=kernels.BUILD)
+    serve_work = tempfile.mkdtemp(prefix='serve-', dir=kernels.BUILD)
     try:
-        cfg, probe = driver_phase(counters, work)
-        resume_and_predict(cfg, work, probe, counters)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    records.append(k4_phase(counters))
+        try:
+            cfg, probe = driver_phase(counters, work)
+            resume_and_predict(cfg, work, probe, counters)
+            # phase 13 serves the last checkpoint written, the resumed
+            # run's: ckpt40 follows the opacity reset at 30, where every
+            # opacity is at most 0.01 and no pixel reaches alpha 0.5
+            ckpt = shutil.copy(os.path.join(
+                work, 'resume', f'ckpt{RESUME_FROM + RESUME_ITERATIONS}.pt'),
+                serve_work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        records.append(k4_phase(counters))
 
-    # 11. the real-format data path; its trees and frames under build/
-    work = tempfile.mkdtemp(prefix='data-', dir=kernels.BUILD)
-    try:
-        real_data_phase(counters, work, gpu)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        # 11. the real-format data path; its trees and frames under build/
+        work = tempfile.mkdtemp(prefix='data-', dir=kernels.BUILD)
+        try:
+            real_data_phase(counters, work, gpu)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
-    # 12. the model variants
-    variant_phase(counters, gpu)
+        # 12. the model variants
+        variant_phase(counters, gpu)
+
+        # 13. the serving apps
+        serving_phase(counters, ckpt, cfg, serve_work, gpu)
+    finally:
+        shutil.rmtree(serve_work, ignore_errors=True)
 
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

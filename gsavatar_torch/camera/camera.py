@@ -40,6 +40,7 @@ class Camera:
     frame_id: int = 0
     cam_id: int = 0
     image_name: str = ""
+    K: Optional[np.ndarray] = None      # (3, 3) intrinsics of a live camera
 
     @property
     def tanfovx(self) -> float:

@@ -13,11 +13,17 @@ compute the same integers with PyTorch on the frame's device:
 - `resize_linear`: an exact 2x downscale takes OpenCV's area path, the
   mean of each 2x2 block as `(a + b + c + d + 2) >> 2`; any other size
   takes the fixed-point bilinear path (11-bit coefficients, the vertical
-  pass as OpenCV's SIMD code rounds it).
+  pass as OpenCV's SIMD code rounds it). On float32 it computes what
+  `cv2.resize` computes there through Intel IPP, which OpenCV's builds call
+  by default for float linear resizes: the source coordinate
+  `(d + 0.5) * src / dst - 0.5` in float64, its fraction t as float32,
+  replicated edges, and `fma(b - a, t, a)` in float32 along x, then along
+  y (exact: float64 products, rounded to odd, then to float32).
 - `resize_nearest`: `floor(x * src / dst)` in float64.
 - `resize_lanczos4`: the 8x8 Lanczos kernel with 11-bit coefficients.
 
-Images are uint8 tensors, (H, W) or (H, W, C)."""
+Images are uint8 tensors, (H, W) or (H, W, C); `resize_linear` also
+takes float32."""
 from __future__ import annotations
 
 import functools
@@ -155,8 +161,55 @@ def _linear_taps(src: int, dst: int):
     return sx, np.minimum(sx + 1, src - 1), a0, a1
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+           ) -> torch.Tensor:
+    """fma(a, b, c) of float32 tensors, rounded once: the float64 product
+    is exact, the float64 sum is rounded to odd (its exact error from
+    TwoSum decides), which makes the final rounding to float32 correct."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, float('inf'), float('-inf')).to(s)
+    s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
+    return s.float()
+
+
+def _ipp_linear_taps(src: int, dst: int):
+    f = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    s = np.floor(f)
+    t = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), t
+
+
+def _resize_linear_float(img: torch.Tensor, hw) -> torch.Tensor:
+    h, w = hw
+    H, W = img.shape[:2]
+    if img.dim() == 3 and img.shape[2] == 1:
+        img = img[..., 0]                 # cv2 drops a single channel
+    dev = img.device
+    x0, x1, tx = (torch.as_tensor(a, device=dev)
+                  for a in _ipp_linear_taps(W, w))
+    y0, y1, ty = (torch.as_tensor(a, device=dev)
+                  for a in _ipp_linear_taps(H, h))
+    extra = (1,) * (img.dim() - 2)
+    a, b = img[:, x0], img[:, x1]
+    rows = _fma32(b - a, tx.view((1, w) + extra).expand_as(a), a)
+    a, b = rows[y0], rows[y1]
+    return _fma32(b - a, ty.view((h, 1) + extra).expand_as(a), a)
+
+
 def resize_linear(img: torch.Tensor, hw) -> torch.Tensor:
-    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`."""
+    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)` of a uint8
+    or float32 image; a float32 (H, W, 1) gives (h, w), as cv2 does."""
+    if img.dtype == torch.float32:
+        return _resize_linear_float(img, hw)
+    if img.dtype != torch.uint8:
+        raise TypeError(f"resize_linear takes uint8 or float32, not "
+                        f"{img.dtype}")
     h, w = hw
     H, W = img.shape[:2]
     if H == 2 * h and W == 2 * w:

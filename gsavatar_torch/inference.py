@@ -4,15 +4,19 @@ Counterpart of `gsavatar/inference.py:InferenceScene`. The scene is built
 from a state (the Gaussian arena and the converter's parameters) and the
 subject's metadata, or with `InferenceScene.from_checkpoint` from a
 checkpoint of the port's training (`scene.py:Scene.save_checkpoint`),
-which it renders at the checkpoint's iteration and SH degree, and
-`load_ply` plays back a 3DGS ply export. `init_state`
+which it renders at the checkpoint's iteration and SH degree, or with
+`InferenceScene.from_smpl_npz` from such a checkpoint and one SMPL npz
+(the serving apps' constructor, no dataset needed), and `load_ply` plays
+back a 3DGS ply export. `init_state`
 makes a state from the port's own seeded initialisation (arena from the
 dataset's point cloud, converter weights from a torch.Generator seeded
 through numpy); `synthetic_scene` puts the two together for the synthetic
 avatar."""
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,11 +25,13 @@ import torch
 from gsavatar_torch.camera.camera import Camera
 from gsavatar_torch.config import load_config
 from gsavatar_torch.core import gaussians as G
+from gsavatar_torch.data import base as data_base
 from gsavatar_torch.data import load_dataset
 from gsavatar_torch.device import resolve_device
 from gsavatar_torch.models.converter import build_converter, compute_nr_cache
 from gsavatar_torch.ops.rasterizer import RasterizeConfig
 from gsavatar_torch.renderer import RenderPackage, render
+from gsavatar_torch.smpl.body_model import find_assets
 from gsavatar_torch.utils import ply as ply_io
 
 
@@ -55,6 +61,60 @@ def init_state(cfg: dict, dataset, seed: int = 0,
     converter = build_converter(cfg, dataset.metadata, dataset.assets,
                                 generator=torch_generator(seed))
     return AvatarState(params, aux, converter.state_dict())
+
+
+def metadata_from_smpl_npz(npz_path: Optional[str], assets,
+                           padding=0.1) -> dict:
+    """Canonical metadata from one ZJU-format model npz (its
+    `minimal_shape`, through `fix_symmetry`), or from the template when
+    there is no npz; `cameras_extent` is ZJU-MoCap's and `frame_dict` is
+    left to the checkpoint (`gsavatar/inference.py:26-37`)."""
+    if npz_path and os.path.exists(npz_path):
+        minimal_shape = data_base.fix_symmetry(
+            np.load(npz_path)['minimal_shape'])
+    else:
+        minimal_shape = assets.v_template.copy()
+    md = data_base.canonicalize(minimal_shape, assets, padding=padding)
+    md['cameras_extent'] = data_base.ZJU_CAMERAS_EXTENT
+    md['frame_dict'] = None
+    return md
+
+
+# the pose correction's per-frame tables and the metadata keys they start
+# from (`models/pose_correction.py:get_pose_correction`)
+POSE_TABLES = {'pose_correction.root_orients': 'root_orient',
+               'pose_correction.pose_bodys': 'pose_body',
+               'pose_correction.pose_hands': 'pose_hand',
+               'pose_correction.trans': 'trans',
+               'pose_correction.betas': 'betas'}
+
+
+def checkpoint_frame_metadata(converter: Dict[str, torch.Tensor]) -> dict:
+    """What a converter built from single-npz metadata needs to take a
+    checkpoint's weights: `frame_dict` with one row per texture latent
+    (1 without one), as the JAX package sizes it
+    (`gsavatar/inference.py:85-91`), and the pose correction's tables as
+    the checkpoint holds them, so that each has the checkpoint's rows."""
+    latent = converter.get('texture.latent.weight')
+    n = latent.shape[0] if latent is not None else 1
+    md = {'frame_dict': {i: i for i in range(n)}}
+    for key, name in POSE_TABLES.items():
+        if key in converter:
+            md[name] = converter[key].detach().cpu().numpy()
+    return md
+
+
+def _fit_latent_tables(converter: torch.nn.Module,
+                       state: Dict[str, torch.Tensor]) -> None:
+    """Give each per-frame latent table of `converter` the rows of the
+    checkpoint's (the non-rigid deformer's keeps its own count where the
+    texture's sizes `frame_dict`)."""
+    for name, module in converter.named_modules():
+        key = f'{name}.latent.weight'
+        table = getattr(module, 'latent', None)
+        if isinstance(table, torch.nn.Embedding) and key in state \
+                and state[key].shape != table.weight.shape:
+            module.latent = torch.nn.Embedding(*state[key].shape)
 
 
 def raster_config_from(cfg: dict) -> RasterizeConfig:
@@ -88,6 +148,7 @@ class InferenceScene:
         self.metadata = dict(metadata)
         self.assets = assets
         self.converter = build_converter(cfg, metadata, assets)
+        _fit_latent_tables(self.converter, state.converter)
         self.converter.load_state_dict(state.converter)
         self.converter.to(self.device).eval()
         self._set_arena(state.gauss_params, state.gauss_aux)
@@ -140,6 +201,35 @@ class InferenceScene:
                             ckpt['converter'])
         return cls(cfg, train.metadata, train.assets, state, device=dev,
                    iteration=int(ckpt['iteration']))
+
+    @classmethod
+    def from_smpl_npz(cls, cfg: dict, checkpoint: str,
+                      smpl_npz: Optional[str] = None, assets=None,
+                      width: Optional[int] = None,
+                      height: Optional[int] = None, device=None
+                      ) -> "InferenceScene":
+        """The serving apps' scene (`gsavatar/inference.py:40-95`): the
+        avatar of a training checkpoint with metadata from one SMPL npz
+        (`metadata_from_smpl_npz`; the template without one) and the
+        assets of `cfg['body_models_dir']`, rendered at `width` x
+        `height` (default the config's `img_hw`) on black, at the
+        config's last iteration with the full SH degree. Every per-frame
+        table takes the checkpoint's rows; a live camera reads row 0 and
+        blends none of it in (`in_frame_dict` 0)."""
+        from gsavatar_torch.scene import read_checkpoint
+        dev = resolve_device(device)
+        ckpt = read_checkpoint(checkpoint, dev)
+        assets = assets or find_assets(cfg.get('body_models_dir'))
+        md = metadata_from_smpl_npz(smpl_npz, assets)
+        md.update(checkpoint_frame_metadata(ckpt['converter']))
+        cfg = copy.deepcopy(cfg)
+        h, w = cfg['dataset']['img_hw']
+        cfg['dataset']['img_hw'] = [int(height or h), int(width or w)]
+        cfg['dataset']['white_background'] = False
+        state = AvatarState(G.GaussianParams(**ckpt['gauss_params']),
+                            G.GaussianAux(**ckpt['gauss_aux']),
+                            ckpt['converter'])
+        return cls(cfg, md, assets, state, device=dev)
 
     def view(self) -> G.Gaussians:
         return G.make_view(

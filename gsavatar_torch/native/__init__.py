@@ -1,11 +1,13 @@
-"""The port's host-side native code: a baseline JPEG decoder.
+"""The port's host-side native code: a baseline JPEG decoder and encoder.
 
 `jpeg.cc` is compiled at first use with `g++ -O3 -shared -fPIC -std=c++17`
 into `build/jpeg-<hash of the source>.so` at the repository root and
 loaded with ctypes; nothing is compiled when this module is imported. It
 decodes what `cv2.imread` decodes for baseline files, to the same bits
-(the source's header says how). A file the decoder cannot read, or a
-failed build, raises: there is no other decoder behind it."""
+(the source's header says how), and encodes what `cv2.imencode('.jpg')`
+writes at its defaults (quality 95, 4:2:0), to the same bytes. A file the
+decoder cannot read, or a failed build, raises: there is no other codec
+behind it."""
 from __future__ import annotations
 
 import ctypes
@@ -62,6 +64,11 @@ def _load() -> ctypes.CDLL:
                                    ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_char_p,
                                    ctypes.c_int]
+        lib.gsj_encode.restype = ctypes.c_long
+        lib.gsj_encode.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_size_t,
+                                   ctypes.c_char_p, ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -86,3 +93,30 @@ def decode_jpeg(data: bytes, name: str = '<bytes>') -> np.ndarray:
 def read_jpeg(path: str) -> np.ndarray:
     with open(path, 'rb') as f:
         return decode_jpeg(f.read(), str(path))
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """The JPEG file of an (H, W, 3) uint8 RGB image: baseline, 4:2:0, the
+    bytes `cv2.imencode('.jpg', bgr, [IMWRITE_JPEG_QUALITY, quality])`
+    gives for its BGR twin."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8 RGB, got "
+                         f"{rgb.shape} {rgb.dtype}")
+    h, w = rgb.shape[:2]
+    # at most 27 bits per coefficient, each byte possibly stuffed
+    mcus = ((h + 15) // 16) * ((w + 15) // 16)
+    out = np.empty(1024 + mcus * 6 * 64 * 8, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    n = _load().gsj_encode(rgb.ctypes.data, w, h, int(quality),
+                           out.ctypes.data, out.nbytes, err, len(err))
+    if n < 0:
+        raise ValueError(f"encode_jpeg: {err.value.decode()}")
+    return out[:n].tobytes()
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 95) -> None:
+    """`encode_jpeg` into the file `path`."""
+    data = encode_jpeg(rgb, quality)
+    with open(path, 'wb') as f:
+        f.write(data)

@@ -10,12 +10,25 @@
 // tables of jdcolor.c. Progressive, arithmetic-coded, lossless, 12-bit and
 // four-component files are refused with an error message.
 //
+// The encoder writes what libjpeg-turbo's default compression writes (the
+// settings `cv2.imwrite` uses for a .jpg): baseline, a JFIF 1.01 APP0,
+// 4:2:0, the Annex K quantization tables scaled to the quality as
+// jcparam.c scales them, the standard Huffman tables, no restart markers.
+// Its arithmetic is libjpeg-turbo's: the fixed-point RGB->YCbCr tables of
+// jccolor.c, h2v2 downsampling with the alternating bias of jcsample.c,
+// the edge replication of jcprepct.c and jcsample.c, the ISLOW integer
+// FDCT (jfdctint.c), the reciprocal quantization of jcdctmgr.c (with the
+// 16-bit DCTELEM of its SIMD builds) and the dummy blocks of jccoefct.c.
+//
 // C interface (ctypes):
 //   int gsj_info(data, n, &width, &height, &components, err, errlen)
 //   int gsj_decode(data, n, out, width, height, err, errlen)
+//   long gsj_encode(rgb, width, height, quality, out, cap, err, errlen)
 // `out` receives height*width*3 bytes of RGB (a grey file is replicated
 // into the three channels). Both return 0 on success and write a message
-// into `err` otherwise.
+// into `err` otherwise. gsj_encode reads height*width*3 bytes of RGB and
+// returns the length of the file written into `out` (at most `cap`
+// bytes), or -1 with a message in `err`.
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -611,6 +624,360 @@ struct Decoder {
   }
 };
 
+// ---- encoder ----
+
+const uint8_t kStdLumaQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromaQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// Annex K.3: counts of codes of each length 1..16, then the symbols
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// jchuff.c: jpeg_make_c_derived_tbl, the canonical code of each symbol
+struct HuffEnc {
+  const uint8_t* bits;
+  const uint8_t* vals;
+  int nvals;
+  uint16_t code[256] = {0};
+  uint8_t size[256] = {0};
+
+  HuffEnc(const uint8_t* b, const uint8_t* v, int n)
+      : bits(b), vals(v), nvals(n) {
+    int c = 0, k = 0;
+    for (int l = 1; l <= 16; l++) {
+      for (int i = 0; i < bits[l - 1]; i++, k++) {
+        code[vals[k]] = (uint16_t)c++;
+        size[vals[k]] = (uint8_t)l;
+      }
+      c <<= 1;
+    }
+  }
+};
+
+struct BitSink {
+  std::vector<uint8_t>& out;
+  uint32_t acc = 0;
+  int n = 0;
+  explicit BitSink(std::vector<uint8_t>& o) : out(o) {}
+
+  void put(uint32_t bits, int len) {  // len <= 16
+    acc = (acc << len) | (bits & ((1u << len) - 1));
+    n += len;
+    while (n >= 8) {
+      uint8_t b = (uint8_t)(acc >> (n - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);  // byte stuffing
+      n -= 8;
+    }
+    acc &= (1u << n) - 1;
+  }
+  // jchuff.c flush_bits: pad the last byte with one-bits
+  void flush() {
+    put(0x7F, 7);
+    acc = 0;
+    n = 0;
+  }
+};
+
+// jfdctint.c: jpeg_fdct_islow, output scaled up by 8
+void fdct_islow(int32_t* d) {
+  const int CB = 13, P1 = 2;
+  auto descale = [](int64_t x, int n) -> int32_t {
+    return (int32_t)((x + ((int64_t)1 << (n - 1))) >> n);
+  };
+  for (int pass = 0; pass < 2; pass++) {
+    const int step = pass == 0 ? 1 : 8, stride = pass == 0 ? 8 : 1;
+    for (int r = 0; r < 8; r++) {
+      int32_t* p = d + r * stride;
+      int64_t t0 = p[0] + p[7 * step], t7 = p[0] - p[7 * step];
+      int64_t t1 = p[step] + p[6 * step], t6 = p[step] - p[6 * step];
+      int64_t t2 = p[2 * step] + p[5 * step], t5 = p[2 * step] - p[5 * step];
+      int64_t t3 = p[3 * step] + p[4 * step], t4 = p[3 * step] - p[4 * step];
+      int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+      const int sh = pass == 0 ? CB - P1 : CB + P1;
+      if (pass == 0) {
+        p[0] = (int32_t)((t10 + t11) * (1 << P1));
+        p[4 * step] = (int32_t)((t10 - t11) * (1 << P1));
+      } else {
+        p[0] = descale(t10 + t11, P1);
+        p[4 * step] = descale(t10 - t11, P1);
+      }
+      int64_t z1 = (t12 + t13) * 4433;
+      p[2 * step] = descale(z1 + t13 * 6270, sh);
+      p[6 * step] = descale(z1 + t12 * -15137, sh);
+      z1 = t4 + t7;
+      int64_t z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+      int64_t z5 = (z3 + z4) * 9633;
+      t4 *= 2446;
+      t5 *= 16819;
+      t6 *= 25172;
+      t7 *= 12299;
+      z1 *= -7373;
+      z2 *= -20995;
+      z3 *= -16069;
+      z4 *= -3196;
+      z3 += z5;
+      z4 += z5;
+      p[7 * step] = descale(t4 + z1 + z3, sh);
+      p[5 * step] = descale(t5 + z2 + z4, sh);
+      p[3 * step] = descale(t6 + z2 + z3, sh);
+      p[step] = descale(t7 + z1 + z4, sh);
+    }
+  }
+}
+
+// jcdctmgr.c: compute_reciprocal with a 16-bit DCTELEM (its SIMD builds)
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(uint32_t divisor) {
+  int b = 0;
+  while ((divisor >> (b + 1)) != 0) b++;  // flss(divisor) - 1
+  int r = 16 + b;
+  uint32_t fq = (uint32_t)(((uint64_t)1 << r) / divisor);
+  uint32_t fr = (uint32_t)(((uint64_t)1 << r) % divisor);
+  uint32_t c = divisor / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    r--;
+  } else if (fr <= divisor / 2) {
+    c++;
+  } else {
+    fq++;
+  }
+  return {fq, c, r};
+}
+
+int32_t quantize(int32_t x, const Divisor& q) {
+  uint32_t a = (uint32_t)(x < 0 ? -x : x);
+  int32_t v = (int32_t)(((uint64_t)(uint16_t)(a + q.corr) * q.recip) >> q.shift);
+  return x < 0 ? -v : v;
+}
+
+void scaled_table(const uint8_t* base, int quality, uint16_t* out) {
+  // jcparam.c: jpeg_quality_scaling, jpeg_add_quant_table(force_baseline)
+  quality = quality <= 0 ? 1 : quality > 100 ? 100 : quality;
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; i++) {
+    long t = ((long)base[i] * scale + 50L) / 100L;
+    out[i] = (uint16_t)(t <= 0 ? 1 : t > 255 ? 255 : t);
+  }
+}
+
+struct Encoder {
+  int w, h, quality;
+  std::vector<uint8_t> out;
+
+  void marker(uint8_t m, const std::vector<uint8_t>& body) {
+    out.push_back(0xFF);
+    out.push_back(m);
+    size_t len = body.size() + 2;
+    out.push_back((uint8_t)(len >> 8));
+    out.push_back((uint8_t)len);
+    out.insert(out.end(), body.begin(), body.end());
+  }
+
+  void dht(uint8_t cls_id, const HuffEnc& t) {
+    std::vector<uint8_t> b{cls_id};
+    b.insert(b.end(), t.bits, t.bits + 16);
+    b.insert(b.end(), t.vals, t.vals + t.nvals);
+    marker(0xC4, b);
+  }
+
+  // encode_one_block of jchuff.c; `blk` in natural order, quantized
+  static void block(BitSink& s, const int32_t* blk, int& last_dc,
+                    const HuffEnc& dc, const HuffEnc& ac) {
+    auto nbits = [](int32_t v) {
+      int n = 0;
+      for (uint32_t a = (uint32_t)(v < 0 ? -v : v); a; a >>= 1) n++;
+      return n;
+    };
+    int32_t diff = blk[0] - last_dc;
+    last_dc = blk[0];
+    int n = nbits(diff);
+    s.put(dc.code[n], dc.size[n]);
+    if (n) s.put((uint32_t)(diff < 0 ? diff - 1 : diff), n);
+    int run = 0;
+    for (int k = 1; k < 64; k++) {
+      int32_t v = blk[kNatural[k]];
+      if (v == 0) {
+        run++;
+        continue;
+      }
+      for (; run > 15; run -= 16) s.put(ac.code[0xF0], ac.size[0xF0]);
+      n = nbits(v);
+      int sym = (run << 4) + n;
+      s.put(ac.code[sym], ac.size[sym]);
+      s.put((uint32_t)(v < 0 ? v - 1 : v), n);
+      run = 0;
+    }
+    if (run > 0) s.put(ac.code[0], ac.size[0]);
+  }
+
+  void encode(const uint8_t* rgb) {
+    if (w <= 0 || h <= 0 || w > 65535 || h > 65535)
+      throw Error{"the image's size is out of JPEG's range"};
+    const int mx = (w + 15) / 16, my = (h + 15) / 16;
+    const int yw = (w + 7) / 8 * 8, yh = my * 16;  // Y plane, edge-padded
+    const int fw = mx * 16, fh = (h + 1) / 2 * 2;  // full-size chroma
+    const int cw = mx * 8, ch = my * 8;            // downsampled chroma
+    // jccolor.c: rgb_ycc_start, SCALEBITS 16
+    const int64_t ONE_HALF = (int64_t)1 << 15, CBCR = (int64_t)128 << 16;
+    auto FIX = [](double x) -> int64_t {
+      return (int64_t)(x * (1L << 16) + 0.5);
+    };
+    std::vector<uint8_t> Y((size_t)yw * yh), Cb((size_t)fw * fh),
+        Cr((size_t)fw * fh);
+    for (int y = 0; y < std::max(yh, fh); y++) {
+      const uint8_t* row = rgb + (size_t)std::min(y, h - 1) * w * 3;
+      for (int x = 0; x < std::max(yw, fw); x++) {
+        const uint8_t* px = row + (size_t)std::min(x, w - 1) * 3;
+        int64_t r = px[0], g = px[1], b = px[2];
+        if (y < yh && x < yw)
+          Y[(size_t)y * yw + x] = (uint8_t)(
+              (FIX(0.29900) * r + FIX(0.58700) * g + FIX(0.11400) * b +
+               ONE_HALF) >> 16);
+        if (y < fh && x < fw) {
+          Cb[(size_t)y * fw + x] = (uint8_t)(
+              (-FIX(0.16874) * r - FIX(0.33126) * g + FIX(0.50000) * b +
+               CBCR + ONE_HALF - 1) >> 16);
+          Cr[(size_t)y * fw + x] = (uint8_t)(
+              (FIX(0.50000) * r - FIX(0.41869) * g - FIX(0.08131) * b +
+               CBCR + ONE_HALF - 1) >> 16);
+        }
+      }
+    }
+    // jcsample.c: h2v2_downsample (bias 1, 2, 1, 2, ... along a row),
+    // then the last row repeated to the iMCU's height (jcprepct.c)
+    auto down = [&](const std::vector<uint8_t>& full) {
+      std::vector<uint8_t> c((size_t)cw * ch);
+      for (int y = 0; y < ch; y++) {
+        int sy = std::min(y, fh / 2 - 1) * 2;
+        const uint8_t* r0 = &full[(size_t)sy * fw];
+        const uint8_t* r1 = r0 + fw;
+        for (int x = 0, bias = 1; x < cw; x++, bias ^= 3)
+          c[(size_t)y * cw + x] = (uint8_t)(
+              (r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + bias) >>
+              2);
+      }
+      return c;
+    };
+    std::vector<uint8_t> CbD = down(Cb), CrD = down(Cr);
+
+    uint16_t qt[2][64];
+    scaled_table(kStdLumaQuant, quality, qt[0]);
+    scaled_table(kStdChromaQuant, quality, qt[1]);
+    Divisor div[2][64];
+    for (int t = 0; t < 2; t++)
+      for (int i = 0; i < 64; i++) div[t][i] = reciprocal(qt[t][i] << 3);
+
+    HuffEnc dcl(kDcLumaBits, kDcVals, 12), acl(kAcLumaBits, kAcLumaVals, 162);
+    HuffEnc dcc(kDcChromaBits, kDcVals, 12),
+        acc(kAcChromaBits, kAcChromaVals, 162);
+
+    out.clear();
+    out.push_back(0xFF);
+    out.push_back(0xD8);
+    marker(0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+    for (int t = 0; t < 2; t++) {
+      std::vector<uint8_t> b{(uint8_t)t};
+      for (int i = 0; i < 64; i++) b.push_back((uint8_t)qt[t][kNatural[i]]);
+      marker(0xDB, b);
+    }
+    marker(0xC0, {8, (uint8_t)(h >> 8), (uint8_t)h, (uint8_t)(w >> 8),
+                  (uint8_t)w, 3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1});
+    dht(0x00, dcl);
+    dht(0x10, acl);
+    dht(0x01, dcc);
+    dht(0x11, acc);
+    marker(0xDA, {3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0});
+
+    const int ybw = (w + 7) / 8, ybh = (h + 7) / 8;  // Y's real blocks
+    auto coefs = [&](const std::vector<uint8_t>& plane, int stride, int bx,
+                     int by, const Divisor* q, int32_t* blk) {
+      int32_t ws[64];
+      for (int r = 0; r < 8; r++)
+        for (int c = 0; c < 8; c++)
+          ws[r * 8 + c] =
+              (int32_t)plane[(size_t)(by * 8 + r) * stride + bx * 8 + c] - 128;
+      fdct_islow(ws);
+      for (int i = 0; i < 64; i++) blk[i] = quantize(ws[i], q[i]);
+    };
+    BitSink s(out);
+    int last[3] = {0, 0, 0};
+    int32_t blk[6][64];
+    for (int m = 0; m < my; m++) {
+      for (int n = 0; n < mx; n++) {
+        // jccoefct.c: blocks past the image's last block column or row
+        // are dummies, zero with the previous block's DC
+        for (int k = 0; k < 4; k++) {
+          int bx = 2 * n + (k & 1), by = 2 * m + (k >> 1);
+          if (by >= ybh) {
+            std::memset(blk[k], 0, sizeof(blk[k]));
+            blk[k][0] = blk[k - 1][0];
+          } else if (bx >= ybw) {
+            std::memset(blk[k], 0, sizeof(blk[k]));
+            blk[k][0] = blk[k - 1][0];
+          } else {
+            coefs(Y, yw, bx, by, div[0], blk[k]);
+          }
+        }
+        coefs(CbD, cw, n, m, div[1], blk[4]);
+        coefs(CrD, cw, n, m, div[1], blk[5]);
+        for (int k = 0; k < 4; k++) block(s, blk[k], last[0], dcl, acl);
+        block(s, blk[4], last[1], dcc, acc);
+        block(s, blk[5], last[2], dcc, acc);
+      }
+    }
+    s.flush();
+    out.push_back(0xFF);
+    out.push_back(0xD9);
+  }
+};
+
 void put_err(char* err, int errlen, const std::string& m) {
   if (err && errlen > 0) std::snprintf(err, errlen, "%s", m.c_str());
 }
@@ -650,6 +1017,26 @@ int gsj_decode(const uint8_t* data, size_t n, uint8_t* out, int width,
   } catch (const std::bad_alloc&) {
     put_err(err, errlen, "out of memory");
     return 1;
+  }
+}
+
+long gsj_encode(const uint8_t* rgb, int width, int height, int quality,
+                uint8_t* out, size_t cap, char* err, int errlen) {
+  try {
+    Encoder e{width, height, quality, {}};
+    e.encode(rgb);
+    if (e.out.size() > cap) {
+      put_err(err, errlen, "the output buffer is too small");
+      return -1;
+    }
+    std::memcpy(out, e.out.data(), e.out.size());
+    return (long)e.out.size();
+  } catch (const Error& e) {
+    put_err(err, errlen, e.msg);
+    return -1;
+  } catch (const std::bad_alloc&) {
+    put_err(err, errlen, "out of memory");
+    return -1;
   }
 }
 

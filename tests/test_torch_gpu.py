@@ -20,7 +20,11 @@ plus 4 float64 ulps of the plain version's largest running sum, and the
 same bits on a second launch. K4 1e-5 of each output's sum of |x| (the
 block's 1024 rows added in another order). The small training step on the
 card against the CPU: loss terms 1e-4 relative, each gradient leaf with a
-cosine > 0.999 and a mean error < 1e-3 of its largest value (bench.py)."""
+cosine > 0.999 and a mean error < 1e-3 of its largest value (bench.py).
+The serving path: the render of `InferenceScene.from_smpl_npz` on the card
+against the CPU's to the render gates; the float32 resize and the
+composite of the apps (`body_replace.composite_frame`) equal bit for
+bit."""
 import numpy as np
 import pytest
 import torch
@@ -556,3 +560,57 @@ def test_small_variant_step_on_the_card_matches_the_cpu(cuda, variant):
         rel = float((a - b).abs().mean()) / max(float(b.abs().max()), 1e-3)
         cos = float(a @ b) / (float(a.norm()) * float(b.norm()))
         assert cos > 0.999 and rel < 1e-3, (name, cos, rel)
+
+
+def test_npz_route_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A small avatar's checkpoint and SMPL npz through
+    `InferenceScene.from_smpl_npz` on the card and on the CPU, posed by a
+    motion series under a live camera: the render gates."""
+    from gsavatar_torch.camera.live import live_camera
+    from gsavatar_torch.inference import InferenceScene
+    from gsavatar_torch.motion.series import MotionSeries
+    cfg, scene, state = _small_train_scene('cpu')
+    ckpt = scene.save_checkpoint(state, 100, str(tmp_path))
+    npz = str(tmp_path / 'smpl.npz')
+    np.savez(npz, minimal_shape=scene.metadata['minimal_shape'])
+    rng = np.random.default_rng(0)
+    series = MotionSeries({'pose': 0.2 * rng.standard_normal((2, 72))},
+                          scene.assets, device='cpu')
+    fields = series.camera_pose_fields(1, scene.metadata)
+    out = []
+    for dev in (cuda, 'cpu'):
+        serve = InferenceScene.from_smpl_npz(cfg, ckpt, npz,
+                                             assets=scene.assets, device=dev)
+        cam = live_camera(np.eye(3), [0.0, 0.0, 2.5], width=64, height=64,
+                          rots=fields[0], Jtrs=fields[1],
+                          bone_transforms=fields[2], device=dev)
+        out.append(serve.render_frame(cam))
+    a, b = out
+    assert a.pair_overflow == 0 and b.n_pairs > 0
+    assert float(b.opacity_render.mean()) > 0.01
+    for x, y in ((a.render.clamp(0, 1), b.render.clamp(0, 1)),
+                 (a.opacity_render, b.opacity_render)):
+        d = (x.double().cpu() - y.double()).abs()
+        assert float(d.mean()) < 1e-4
+        assert float((d > 1e-2).double().mean()) < 1e-3
+
+
+@pytest.mark.parametrize('shape,hw', [((540, 540, 3), (1080, 1080)),
+                                      ((540, 540, 1), (1080, 1080)),
+                                      ((37, 53, 3), (100, 77)),
+                                      ((128, 128), (64, 64))])
+def test_float_resize_and_composite_on_the_card_equal_the_cpu(cuda, shape,
+                                                              hw):
+    from gsavatar_torch.apps.body_replace import composite_frame
+    from gsavatar_torch.data.image_ops import resize_linear
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.random(shape, dtype=np.float32))
+    assert torch.equal(resize_linear(x.to(cuda), hw).cpu(),
+                       resize_linear(x, hw))
+    render = torch.from_numpy(rng.random(shape[:2] + (3,), dtype=np.float32))
+    alpha = torch.from_numpy(rng.random(shape[:2], dtype=np.float32))
+    frame = torch.from_numpy(
+        (rng.random(tuple(hw) + (3,)) * 255).astype(np.uint8))
+    assert torch.equal(
+        composite_frame(render.to(cuda), alpha.to(cuda), frame.to(cuda)).cpu(),
+        composite_frame(render, alpha, frame))

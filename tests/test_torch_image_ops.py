@@ -6,7 +6,11 @@ the JAX loader tests' 1024 -> 64, with ZJU-like and PeopleSnapshot-like
 intrinsics and distortion, on black and white backgrounds. Every path is
 bit-equal: undistortion, the 2x area path, the generic fixed-point
 bilinear path (1024 -> 64, 1024 -> 300), nearest and Lanczos4; the frames
-as float32 after /255 are equal too."""
+as float32 after /255 are equal too. The float32 resize the serving apps
+take (`cv2.resize` of a render and its alpha) is bit-equal to
+`cv2.resize` on float32 with OpenCV's default (Intel IPP) path: 2x up, 2x
+down, ratios that are not integers, odd sizes, 1 and 3 channels, and
+values outside [0, 1]."""
 import cv2
 import numpy as np
 import pytest
@@ -72,6 +76,69 @@ def test_resize_bit_equal(raw, out):
         np.testing.assert_array_equal(
             fn(t, (out, out)).numpy(),
             cv2.resize(img, (out, out), interpolation=flag), fn.__name__)
+
+
+FLOAT_CASES = {'up2': (64, 64, 128, 128), 'down2': (128, 128, 64, 64),
+               'odd_up': (37, 53, 100, 77), 'odd_down': (51, 33, 20, 17),
+               'bench_up2': (540, 540, 1080, 1080), 'up_1_5': (64, 64, 96, 96),
+               'same': (20, 30, 20, 30)}
+
+
+@pytest.mark.parametrize('channels', [0, 1, 3], ids=['hw', 'hw1', 'hw3'])
+@pytest.mark.parametrize('case', sorted(FLOAT_CASES))
+def test_float_resize_bit_equal(case, channels):
+    H, W, h, w = FLOAT_CASES[case]
+    rng = np.random.default_rng(H * W + channels)
+    shape = (H, W) if channels == 0 else (H, W, channels)
+    img = rng.random(shape, dtype=np.float32)
+    want = cv2.resize(img, (w, h))
+    got = image_ops.resize_linear(torch.from_numpy(img), (h, w))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_float_resize_wide_values_bit_equal():
+    img = (np.random.default_rng(5).standard_normal((37, 41, 3))
+           * 1000).astype(np.float32)
+    np.testing.assert_array_equal(
+        image_ops.resize_linear(torch.from_numpy(img), (70, 90)).numpy(),
+        cv2.resize(img, (90, 70)))
+
+
+def _round32(x):
+    """The float32 nearest the Fraction x, ties to even."""
+    from fractions import Fraction
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    best = min(abs(Fraction(float(g)) - x) for g in cands)
+    near = [g for g in cands if abs(Fraction(float(g)) - x) == best]
+    return min(near, key=lambda g: int(g.view(np.int32)) & 1)
+
+
+def test_fma32_rounds_once():
+    """`_fma32` against exact rational arithmetic: seeded values, and a sum
+    just below a float32 tie whose float64 rounding lands on the tie (a
+    float64 fma rounded again to float32 would round it up to even)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(2000).astype(np.float32)
+    b = (rng.random(2000) * 2.0 ** -rng.integers(0, 30, 2000)).astype(
+        np.float32)
+    c = rng.standard_normal(2000).astype(np.float32)
+    one = np.float32(1 + 2.0 ** -23)
+    a = np.append(a, one)
+    b = np.append(b, np.float32((1 - 2.0 ** -23) * 2.0 ** -24))
+    c = np.append(c, one)
+    got = image_ops._fma32(*(torch.from_numpy(x) for x in (a, b, c)))
+    want = np.array([_round32(Fraction(float(x)) * Fraction(float(y))
+                              + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[-1] == one
+    naive = np.float32(np.float64(a[-1]) * np.float64(b[-1])
+                       + np.float64(c[-1]))
+    assert naive != one
 
 
 @pytest.mark.parametrize('white', [False, True], ids=['black', 'white'])

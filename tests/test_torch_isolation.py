@@ -1,6 +1,8 @@
 """The port stands alone: gsavatar_torch and chip_smoke.py import nothing of
-JAX or of the JAX package, nor OpenCV or Pillow (the card's machine has
-neither), no module builds or imports a GPU toolchain at
+JAX or of the JAX package, nor Pillow, and OpenCV only inside the functions
+of the wrappers of its video I/O and ArUco detection (`motion/streams.py`,
+which the card's machine cannot run: it has neither package), no module
+builds or imports a GPU toolchain at
 import time, the entry points refuse to run without a GPU unless the
 caller asks for the CPU, and a kernel library's name follows every source
 it is built from."""
@@ -23,23 +25,36 @@ AUDITED = ('subprocess.Popen', 'os.posix_spawn', 'os.exec', 'os.system',
            'os.fork', 'ctypes.dlopen')
 PORT_FILES = sorted((ROOT / 'gsavatar_torch').rglob('*.py')) + [
     ROOT / 'chip_smoke.py']
+# the one module that may import OpenCV, and only inside its functions
+CV2_WRAPPERS = ('gsavatar_torch/motion/streams.py',)
+# the serving path's modules, which must import without OpenCV
+SERVING = ('gsavatar_torch.apps.ar_render', 'gsavatar_torch.apps.body_replace',
+           'gsavatar_torch.apps.capture_and_record',
+           'gsavatar_torch.apps.render_series', 'gsavatar_torch.camera.live',
+           'gsavatar_torch.motion.series', 'gsavatar_torch.motion.streams')
 
 
 def _imports(path: Path):
+    """(module, inside a function) of each import statement."""
     tree = ast.parse(path.read_text(), str(path))
+    inner = {id(n) for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in ast.walk(f)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, id(node) in inner) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module or ''
+            yield node.module or '', id(node) in inner
 
 
 @pytest.mark.parametrize('path', PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_reference_imports(path):
-    bad = [m for m in _imports(path)
-           if m.split('.')[0] in FORBIDDEN]
-    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    rel = str(path.relative_to(ROOT))
+    bad = [m for m, in_function in _imports(path)
+           if m.split('.')[0] in FORBIDDEN
+           and not (m == 'cv2' and in_function and rel in CV2_WRAPPERS)]
+    assert not bad, f"{rel} imports {bad}"
 
 
 def test_import_pulls_in_no_jax_triton_or_build():
@@ -67,12 +82,15 @@ def test_import_pulls_in_no_jax_triton_or_build():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         f"{FORBIDDEN + ('triton',)!r})\n"
-        "print(json.dumps({'modules': bad, 'events': seen}))\n")
+        "serving = sorted(k for k in sys.modules if k in "
+        f"{SERVING!r})\n"
+        "print(json.dumps({'modules': bad, 'events': seen, "
+        "'serving': serving}))\n")
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {'modules': [], 'events': []}
+    assert got == {'modules': [], 'events': [], 'serving': sorted(SERVING)}
 
 
 def _tiny_setup():

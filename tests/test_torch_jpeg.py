@@ -2,7 +2,9 @@
 against `cv2.imread` on files that `cv2.imwrite` wrote: every case must be
 bit-equal to `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`. Files
 the decoder does not read (progressive, arithmetic-coded) raise with their
-name."""
+name. The port's encoder against `cv2.imencode('.jpg')` at its defaults
+(quality 95, 4:2:0): the same bytes, on seeded images of sizes that are
+and are not multiples of the MCU."""
 import cv2
 import numpy as np
 import pytest
@@ -85,3 +87,47 @@ def test_library_is_named_by_its_source(tmp_path, monkeypatch):
     src.write_text(src.read_text() + '\n// edited\n')
     assert native._target() != before
     assert before.name.startswith('jpeg-') and before.suffix == '.so'
+
+
+ENCODE_CASES = {
+    '37x53_smooth': lambda: smooth_frame(37, 53, 1),
+    '64x64_smooth': lambda: smooth_frame(64, 64, 2),
+    '512x512_smooth': lambda: smooth_frame(512, 512, 3),
+    '37x53_noise': lambda: (np.random.default_rng(4).random((37, 53, 3))
+                            * 255).astype(np.uint8),
+    '64x64_flat': lambda: np.full((64, 64, 3), (200, 30, 90), np.uint8),
+    '1x1': lambda: smooth_frame(1, 1, 5),
+    '17x9_smooth': lambda: smooth_frame(17, 9, 6),
+}
+
+
+@pytest.mark.parametrize('case', sorted(ENCODE_CASES))
+def test_encoder_bytes_equal_cv2(case, tmp_path):
+    """The bytes cv2 writes for the image's BGR twin; the file decodes,
+    through the port's decoder, to what cv2 decodes."""
+    img = ENCODE_CASES[case]()
+    ok, want = cv2.imencode('.jpg', cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    assert ok
+    got = native.encode_jpeg(img)
+    assert got == want.tobytes()
+    path = tmp_path / 'f.jpg'
+    native.write_jpeg(str(path), img)
+    assert path.read_bytes() == got
+    np.testing.assert_array_equal(
+        native.read_jpeg(str(path)),
+        cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB))
+
+
+@pytest.mark.parametrize('quality', [50, 75, 100])
+def test_encoder_quality_bytes_equal_cv2(quality):
+    img = smooth_frame(40, 72, quality)
+    ok, want = cv2.imencode('.jpg', cv2.cvtColor(img, cv2.COLOR_RGB2BGR),
+                            [cv2.IMWRITE_JPEG_QUALITY, quality])
+    assert native.encode_jpeg(img, quality) == want.tobytes()
+
+
+def test_encoder_refuses_what_it_does_not_write():
+    with pytest.raises(ValueError, match='uint8 RGB'):
+        native.encode_jpeg(np.zeros((8, 8), np.uint8))
+    with pytest.raises(ValueError, match='uint8 RGB'):
+        native.encode_jpeg(np.zeros((8, 8, 3), np.float32))

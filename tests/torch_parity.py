@@ -148,3 +148,38 @@ def smooth_frame(h, w, seed, grey=False):
     img += rng.normal(0, 12, img.shape)
     img = np.clip(img, 0, 255).astype(np.uint8)
     return img[..., 0] if grey else img
+
+
+def motion_arrays(n, seed=0, global_z=3.0, focal=True):
+    """A CLIFF-style motion (pose (n, 72), shape (n, 10), global_t (n, 3),
+    focal_l) from a numpy seed: small body rotations, the body about
+    `global_z` in front of the camera."""
+    rng = np.random.default_rng(seed)
+    out = {'pose': (0.2 * rng.standard_normal((n, 72))).astype(np.float32),
+           'shape': (0.5 * rng.standard_normal((n, 10))).astype(np.float32),
+           'global_t': (np.array([0.0, 0.1, global_z])
+                        + 0.05 * rng.standard_normal((n, 3))
+                        ).astype(np.float32)}
+    if focal:
+        out['focal_l'] = np.float32(1100.0)
+    return out
+
+
+def write_torch_checkpoint(path, state, iteration):
+    """A checkpoint file of the port's format (`Scene.save_checkpoint`)
+    holding an AvatarState; the optimizer states are zeros."""
+    import dataclasses
+
+    def fields(p):
+        return {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
+
+    zeros = {k: torch.zeros_like(v)
+             for k, v in fields(state.gauss_params).items()}
+    torch.save({'gauss_params': fields(state.gauss_params),
+                'gauss_aux': fields(state.gauss_aux),
+                'gauss_adam': {'m': zeros, 'v': zeros, 'step': 0},
+                'converter': state.converter,
+                'conv_opt': {'mu': {}, 'nu': {}, 'count': 0},
+                'generator': torch.Generator().get_state(),
+                'iteration': iteration}, str(path))
+    return str(path)
