@@ -1,7 +1,7 @@
 """On-card smoke test of gsavatar_torch: the avatar render path, the
 training step, the full training run with evaluation, the narrow-row
-probe, the real-format data path, the model variants and the serving
-apps.
+probe, the real-format data path, the model variants, the serving apps,
+and multi-subject training with B frames per step.
 
     python3 chip_smoke.py
 
@@ -92,12 +92,26 @@ them. Phases, any failure ends the run with a non-zero exit:
    PNG) whose tree the ZJU-MoCap loader reads back for 10 training steps
    (K1 10, K2 10, K3 60); every render finite, in [0, 1] and with the
    avatar in view; each app's ms per frame and its split (the LBS,
-   `render_frame`, resize and composite, the file writes).
+   `render_frame`, resize and composite, the file writes);
+14. multi-subject training and B frames per step, at the bench shape:
+   `parallel.subjects` with four synthetic subjects (`dataset.seed` 0-3)
+   for 20 iterations (densify at 10, the opacity reset at 15, validation
+   at 20 on 1 frame a split, each subject's checkpoint at 20,
+   `strict_overflow` on; K1 80 + 8, K2 80, K3 480), then subjects 0 and 3
+   alone with the same seeds, equal to theirs in the multi-subject run bit
+   for bit (every logged loss and `n_alive`, the densify's alive count,
+   the final xyz); `parallel.frames_per_step=2` on `{data: 1, model: 1}`
+   for the same 20 iterations (K1 40 + 2, K2 40, K3 240); the
+   `{data: 1, model: 1}` route against the plain route for 5 iterations,
+   bit for bit; a small B = 2 step on the card against the CPU at the
+   gates of phase 8; each run with the launch counts set to 0 just before
+   and read just after, and its step median and peak memory.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import math
@@ -443,34 +457,38 @@ def grad_gates(got, want, name):
 
 
 def train_reference(overrides=(), iteration=LATE_ITERATION,
-                    label='train reference'):
-    """One small training step (of the model variant `overrides`, at
-    `iteration` with its SH degree) on the card and on the CPU from the
-    same state, camera and draws: loss terms within LOSS_RTOL, every
-    gradient leaf within bench.py's gates."""
-    from gsavatar_torch.train import draw, loss_weights, make_grad_fn
+                    label='train reference', frames=1):
+    """One small training step over `frames` frames (of the model variant
+    `overrides`, at `iteration` with its SH degree; the mean of the frames'
+    losses) on the card and on the CPU from the same state, cameras and
+    draws: each frame's loss terms and the mean loss within LOSS_RTOL,
+    every gradient leaf within bench.py's gates."""
+    from gsavatar_torch.train import draw, loss_weights, make_batch_grad_fn
     cfg, cpu, cpu_state = small_train_scene('cpu', overrides=overrides)
     _, gpu, gpu_state = small_train_scene(DEVICE, ref=(cpu, cpu_state),
                                           overrides=overrides)
-    cam_cpu = cpu.train_dataset[0]
-    cam_gpu = gpu.train_dataset[0].replace(image=cam_cpu.image.to(DEVICE),
-                                           mask=cam_cpu.mask.to(DEVICE))
-    draws = draw(cpu, cpu_state.generator)
+    cams_cpu = [cpu.train_dataset[i] for i in range(frames)]
+    cams_gpu = [gpu.train_dataset[i].replace(image=c.image.to(DEVICE),
+                                             mask=c.mask.to(DEVICE))
+                for i, c in enumerate(cams_cpu)]
+    draws = [draw(cpu, cpu_state.generator) for _ in range(frames)]
     w = loss_weights(cfg, iteration)
     deg = cpu.active_sh_degree(iteration)
     bucket = cpu.bucket_for(int(cpu_state.gauss_aux.alive.sum()))
     out = {}
-    for name, scene, state, cam in (('cpu', cpu, cpu_state, cam_cpu),
-                                    ('gpu', gpu, gpu_state, cam_gpu)):
-        out[name] = make_grad_fn(scene)(
-            state, cam, iteration, w, draws.to(scene.device), deg,
-            bucket, scene.raster_config)
-    (m_c, _, g_c), (m_g, _, g_g) = out['cpu'], out['gpu']
+    for name, scene, state, cams in (('cpu', cpu, cpu_state, cams_cpu),
+                                     ('gpu', gpu, gpu_state, cams_gpu)):
+        out[name] = make_batch_grad_fn(scene)(
+            state, cams, iteration, w, [d.to(scene.device) for d in draws],
+            deg, bucket, scene.raster_config)
+    (loss_c, m_c, _, g_c), (loss_g, m_g, _, g_g) = out['cpu'], out['gpu']
     worst = 0.0
-    for k, v in m_c.items():
-        if not k.startswith('loss/'):
-            continue
-        a, b = float(m_g[k]), float(v)
+    terms = [('loss', loss_g, loss_c)] + [
+        (f'{k} (frame {b})', mg[k], v) for b, (mg, mc) in
+        enumerate(zip(m_g, m_c)) for k, v in mc.items()
+        if k.startswith('loss/')]
+    for k, a, b in terms:
+        a, b = float(a), float(b)
         rel = abs(a - b) / max(abs(b), 1e-12)
         worst = max(worst, rel if abs(b) > 1e-9 else 0.0)
         if abs(b) > 1e-9 and rel > LOSS_RTOL:
@@ -481,7 +499,8 @@ def train_reference(overrides=(), iteration=LATE_ITERATION,
                 getattr(g_c['gauss'], f))
                for f in ('xyz', 'features_dc', 'features_rest', 'scaling',
                          'rotation', 'opacity')]
-    leaves.append(('means2d', g_g['means2d'], g_c['means2d']))
+    leaves += [(f'means2d (frame {b})', a, c) for b, (a, c) in
+               enumerate(zip(g_g['means2d'], g_c['means2d']))]
     min_cos, max_rel = 1.0, 0.0
     for name, a, b in leaves:
         if not float(b.abs().max()) > 0.0:
@@ -493,8 +512,8 @@ def train_reference(overrides=(), iteration=LATE_ITERATION,
     log(f"{label}: {len(leaves)} gradient leaves, min cosine "
         f"{min_cos:.7f} (gate > {GRAD_COS}), max mean rel {max_rel:.3e} "
         f"(gate < {GRAD_REL}); loss terms max rel {worst:.3e} (gate < "
-        f"{LOSS_RTOL}); pairs {m_g['raster/n_pairs']} on the card, "
-        f"{m_c['raster/n_pairs']} on the CPU")
+        f"{LOSS_RTOL}); pairs {[m['raster/n_pairs'] for m in m_g]} on the "
+        f"card, {[m['raster/n_pairs'] for m in m_c]} on the CPU")
 
 
 def capture_kernel_inputs(scene, state, cam, weights, bucket, draws=None):
@@ -1018,16 +1037,21 @@ class DriverProbe:
         del self.scene.save_checkpoint
 
 
-def driver_scene(cfg):
-    """A training Scene whose cameras have rendered their ground truth
-    already (K1 renders it), so that a run's K1 count is its own."""
-    from gsavatar_torch.scene import Scene
-    scene = Scene(cfg, seed=max(int(cfg.get('seed', -1)), 0), device=DEVICE)
+def prerendered(scene):
+    """`scene` with its cameras' ground truth rendered already (K1 renders
+    it), so that a run's K1 count is its own."""
     for ds in (scene.train_dataset, scene.test_dataset):
         for i in range(len(ds)):
             ds[i]
     torch.cuda.synchronize()
     return scene
+
+
+def driver_scene(cfg):
+    """The training Scene of `cfg`, its ground truth rendered already."""
+    from gsavatar_torch.scene import Scene
+    return prerendered(Scene(cfg, seed=max(int(cfg.get('seed', -1)), 0),
+                             device=DEVICE))
 
 
 def driven(counters, fn):
@@ -2091,6 +2115,219 @@ def serving_phase(counters, ckpt, cfg, work, gpu):
     real_train(scene_z, cams, CAPTURE_STEPS, counters, 'captured tree', gpu)
 
 
+# phase 14: multi-subject training (BASELINE config 5's four subjects; here
+# four synthetic subjects that differ by dataset.seed) and B frames per
+# optimizer step, at the bench shape: 20 iterations, a densify at 10, the
+# opacity reset at 15, validation at 20 on 1 frame a split, the final
+# checkpoints at 20
+MS_SEEDS = (0, 1, 2, 3)
+MS_ALONE = (0, 3)         # the subjects run again alone
+P14_ITERATIONS = 20
+P14_OVERRIDES = (
+    f"opt.iterations={P14_ITERATIONS}", "model.gaussian.delay=0",
+    "opt.densify_from_iter=5", "opt.densification_interval=10",
+    f"opt.densify_until_iter={P14_ITERATIONS}",
+    "opt.opacity_reset_interval=15", "test_interval=20", "max_val_frames=1",
+    "strict_overflow=true")
+BATCH_FRAMES = 2
+BATCH = ("parallel.data=1", "parallel.model=1")
+B1_ITERATIONS = 5
+
+
+class StepTimes:
+    """While installed, each step that `module.<name>` (a step factory)
+    makes is timed on the host clock, ended by a device sync."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.ms = module, name, []
+
+    def __enter__(self):
+        self.make = make = getattr(self.module, self.name)
+        times = self.ms
+
+        def timed_make(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1000.0)
+                return out
+            return timed
+        setattr(self.module, self.name, timed_make)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.make)
+
+    def median(self) -> float:
+        later = sorted(self.ms[1:])
+        return later[len(later) // 2]
+
+
+def rows(logger, key):
+    return {r['step']: r[key] for r in logger.history if key in r}
+
+
+def p14_cfg(work, tag, extra=()):
+    from gsavatar_torch.config import BENCH_OVERRIDES, load_config
+    return load_config(list(BENCH_OVERRIDES) + list(P14_OVERRIDES)
+                       + list(extra) + [f"exp_dir={os.path.join(work, tag)}"])
+
+
+def p14_launches(iterations, val_frames, label, launches):
+    want = {'composite_fwd': iterations + val_frames,
+            'composite_bwd': iterations,
+            'segsum': K3_PER_STEP * iterations, 'narrow_rows': 0}
+    log(f"{label} launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+
+
+def memory_of(counters, fn):
+    """`driven(counters, fn)` with the device memory (GiB) allocated just
+    before it, after the tensors nothing refers to are freed, and the peak
+    while it ran: (result, launches, (before, peak))."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = driven(counters, fn)
+    return out, launches, (before, torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def gib(mem) -> str:
+    before, peak = mem
+    return f"{peak:.3f} GiB ({before:.3f} held before the run)"
+
+
+def single_run(work, tag, extra, counters=None, max_iterations=None):
+    """`train.training` on a prerendered scene of the phase-14 config with
+    `extra`; returns (state, logger, step times, memory, launches)."""
+    from gsavatar_torch import train
+    from gsavatar_torch.parallel import shard
+    cfg = p14_cfg(work, tag, extra)
+    scene = driver_scene(cfg)
+    with StepTimes(train, 'make_train_step') as t1, \
+            StepTimes(shard, 'make_batch_train_step') as tb:
+        (_, state, logger), launches, mem = memory_of(
+            counters or {}, lambda: train.training(
+                cfg, scene=scene, log_every=1, progress=False,
+                max_iterations=max_iterations))
+    check_finite_records(logger, tag)
+    return state, logger, (tb if tb.ms else t1), mem, launches
+
+
+def multi_subject_phase(counters, work, gpu):
+    """Phase 14: S = 4 subjects at the bench shape against subjects 0 and 3
+    alone; B = 2 frames per step; the B = 1 route against the plain route;
+    a small B = 2 step on the card against the CPU."""
+    from gsavatar_torch.parallel import multi_subject as msm
+    S = len(MS_SEEDS)
+    cfg = p14_cfg(work, 'ms', [
+        f"parallel.subjects={[{'seed': i} for i in MS_SEEDS]}"])
+    t0 = time.perf_counter()
+    ms = msm.MultiSubjectScene(cfg, seed=SEED, device=DEVICE)
+    for scene in ms.scenes:
+        prerendered(scene)
+    log(f"multi-subject set-up: {S} subjects, "
+        f"{time.perf_counter() - t0:.1f} s")
+    with StepTimes(msm, 'make_multi_subject_step') as t_ms:
+        (_, states, logger), launches, ms_mem = memory_of(
+            counters, lambda: msm.training_multi_subject(
+                cfg, ms=ms, log_every=1, progress=False))
+    del ms
+    check_finite_records(logger, 'multi-subject run')
+    # S steps an iteration; each subject's validation renders 1 test frame
+    # and 1 training frame
+    p14_launches(S * P14_ITERATIONS, 2 * S, 'multi-subject run', launches)
+    densify = {k: v for r in logger.history for k, v in r.items()
+               if k.startswith('densify/')}
+    if list(rows(logger, 'densify/n_alive')) != [10] or not any(
+            c + s for c, s in zip(densify['densify/n_cloned'],
+                                  densify['densify/n_split'])):
+        fail(f"multi-subject densify: {densify}")
+    log("multi-subject densify at 10, per subject: " + "; ".join(
+        f"subject {i}: " + ", ".join(
+            f"{k.split('/')[1]} {v[i]}" for k, v in densify.items())
+        for i in range(S)))
+    for i in range(S):
+        ckpt = os.path.join(work, 'ms', f'subject{i}',
+                            f'ckpt{P14_ITERATIONS}.pt')
+        if not os.path.exists(ckpt):
+            fail(f"no checkpoint {ckpt}")
+    val = {k: v for r in logger.history for k, v in r.items()
+           if k.endswith('/val/test_psnr')}
+    log(f"multi-subject validation at 20: test PSNR {val}")
+    xyz = {i: states[i].gauss_params.xyz for i in MS_ALONE}
+    del states
+
+    alone = {}
+    for i in MS_ALONE:
+        state, slog, t1, mem, _ = single_run(
+            work, f'alone{i}', [f"dataset.seed={MS_SEEDS[i]}",
+                                f"seed={SEED + i}"])
+        alone[i] = (t1.median(), mem)
+        for key in ('loss/total_loss', 'n_alive'):
+            got, want = rows(logger, f'subject{i}/{key}'), rows(slog, key)
+            if got != want:
+                bad = [s for s in want if got.get(s) != want[s]]
+                fail(f"subject {i} differs from its single run in {key} "
+                     f"from iteration {bad[0]}: {got.get(bad[0])} against "
+                     f"{want[bad[0]]}")
+        if densify['densify/n_alive'][i] != rows(slog, 'densify/n_alive')[10]:
+            fail(f"subject {i}: densify n_alive differs from its single run")
+        if not torch.equal(xyz[i], state.gauss_params.xyz):
+            fail(f"subject {i}: final xyz differs from its single run")
+        log(f"subject {i} equals its single run bit for bit: "
+            f"{P14_ITERATIONS} losses, n_alive, final xyz "
+            f"({int(state.gauss_aux.alive.sum())} alive)")
+        del state
+    one, one_mem = alone[MS_ALONE[0]]
+    log(f"multi-subject S={S} ({gpu}): median {t_ms.median():.3f} ms per "
+        f"iteration (iterations 2-{P14_ITERATIONS}, host clock, synced), "
+        f"one subject alone " + ", ".join(
+            f"{t:.3f} ms (subject {i})" for i, (t, _) in alone.items())
+        + f"; ratio {t_ms.median() / one:.2f}; peak device memory "
+        f"{gib(ms_mem)}, one subject alone " + ", ".join(
+            gib(m) for _, m in alone.values()))
+
+    # B = 2 frames per step, 20 iterations
+    _, blog, tb, b_mem, launches = single_run(
+        work, 'b2', BATCH + (f"parallel.frames_per_step={BATCH_FRAMES}",),
+        counters)
+    p14_launches(BATCH_FRAMES * P14_ITERATIONS, 2,
+                 f'B={BATCH_FRAMES} run', launches)
+    if list(rows(blog, 'densify/n_alive')) != [10]:
+        fail(f"B={BATCH_FRAMES} run: densify at "
+             f"{list(rows(blog, 'densify/n_alive'))}")
+    log(f"B={BATCH_FRAMES} run: loss {rows(blog, 'loss')[1]:.5f} -> "
+        f"{rows(blog, 'loss')[P14_ITERATIONS]:.5f}, densify "
+        f"n_alive {rows(blog, 'densify/n_alive')[10]}")
+
+    # the B = 1 route against the plain route, 5 iterations
+    (s0, l0, t_plain, _, _), (s1, l1, t_b1, _, _) = (
+        single_run(work, tag, extra, max_iterations=B1_ITERATIONS)
+        for tag, extra in (('plain', ()), ('b1', BATCH)))
+    a, b = _state_tensors(s0), _state_tensors(s1)
+    bad = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+    if rows(l0, 'loss/total_loss') != rows(l1, 'loss/total_loss') or bad:
+        fail(f"the B=1 route differs from the plain route: {bad[:5]}")
+    log(f"B=1 route equals the plain route bit for bit: {B1_ITERATIONS} "
+        f"losses, {len(a)} state tensors")
+    log(f"frames_per_step B={BATCH_FRAMES} ({gpu}): median "
+        f"{tb.median():.3f} ms per step (steps 2-{P14_ITERATIONS}, host "
+        f"clock, synced), B=1 {one:.3f} ms (subject 0 alone, the same "
+        f"config; the B=1 route {t_b1.median():.3f} and the plain route "
+        f"{t_plain.median():.3f} over steps 2-{B1_ITERATIONS}); ratio "
+        f"{tb.median() / one:.2f}; peak device memory {gib(b_mem)}, B=1 "
+        f"{gib(one_mem)}")
+
+    train_reference(label=f'B={BATCH_FRAMES} train reference',
+                    frames=BATCH_FRAMES)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
@@ -2220,6 +2457,14 @@ def main():
         serving_phase(counters, ckpt, cfg, serve_work, gpu)
     finally:
         shutil.rmtree(serve_work, ignore_errors=True)
+
+    # 14. multi-subject training and B frames per step; their checkpoints
+    # under build/
+    work = tempfile.mkdtemp(prefix='ms-', dir=kernels.BUILD)
+    try:
+        multi_subject_phase(counters, work, gpu)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

@@ -22,7 +22,11 @@ subject's, its `dataset_name`, and its other blocks (the `opt:` of
 `ps_female_3`). An unknown choice raises. Keys that the JAX package reads
 with a default in its code rather than from its yaml
 (`opt.bucket_granularity`, `log_every`, `max_val_frames`,
-`strict_overflow`) are here at that default."""
+`strict_overflow`) are here at that default. `parallel.frames_per_step`
+and `parallel.subjects` (a list of dataset overrides, one per subject),
+which the JAX package reads with `get` and its yaml leaves out, stay
+absent unless an override sets them (`parallel.frames_per_step=2`,
+`"parallel.subjects=[{'seed': 0}, {'seed': 1}]"`)."""
 from __future__ import annotations
 
 import ast

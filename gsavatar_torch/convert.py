@@ -14,13 +14,18 @@ the JAX side, so this module imports no JAX) and returns the port's:
   the densify statistics and the cached AIAP neighbours.
 * `arena_adam(gauss_adam)`: the arena Adam's moments and its shared step.
 
+* `unstack_state(stacked, i)`: subject i of a JAX stacked TrainState
+  (`gsavatar/parallel/multi_subject.py`, every leaf with a leading subject
+  axis) through the three above.
+
 The converter optimizer's state is not carried: a carried state starts
 fresh (count 0, zero moments, `scene.ConverterOptimizer.init`). Carrying a
 mid-run optax state waits for checkpoints."""
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from types import SimpleNamespace
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -59,11 +64,15 @@ def converter_state(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+PARAM_FIELDS = ('xyz', 'features_dc', 'features_rest', 'scaling',
+                'rotation', 'opacity')
+AUX_FIELDS = ('alive', 'max_radii2d', 'xyz_gradient_accum', 'denom', 'nn_ix')
+
+
 def _params(tree) -> GaussianParams:
     return GaussianParams(**{
         k: torch.from_numpy(np.array(getattr(tree, k), np.float32))
-        for k in ('xyz', 'features_dc', 'features_rest', 'scaling',
-                  'rotation', 'opacity')})
+        for k in PARAM_FIELDS})
 
 
 def arena(gauss_params, gauss_aux):
@@ -82,3 +91,33 @@ def arena_adam(gauss_adam) -> ArenaAdamState:
     """JAX ArenaAdamState (numpy leaves) -> the port's."""
     return ArenaAdamState(m=_params(gauss_adam.m), v=_params(gauss_adam.v),
                           step=int(np.asarray(gauss_adam.step)))
+
+
+class CarriedState(NamedTuple):
+    """What the port takes of one JAX TrainState."""
+    converter: Dict[str, torch.Tensor]
+    gauss_params: GaussianParams
+    gauss_aux: GaussianAux
+    gauss_adam: ArenaAdamState
+
+
+def _lane(tree, names, i):
+    return SimpleNamespace(**{n: np.asarray(getattr(tree, n))[i]
+                              for n in names})
+
+
+def unstack_state(stacked, i: int) -> CarriedState:
+    """Subject i of a JAX stacked TrainState (numpy leaves, each with a
+    leading subject axis): its converter state dict, arena and arena Adam."""
+    take = lambda tree: ({k: take(v) for k, v in tree.items()}
+                         if isinstance(tree, dict) else np.asarray(tree)[i])
+    adam = stacked.gauss_adam
+    gauss_params, gauss_aux = arena(
+        _lane(stacked.gauss_params, PARAM_FIELDS, i),
+        _lane(stacked.gauss_aux, AUX_FIELDS, i))
+    return CarriedState(
+        converter=converter_state(take(stacked.conv_params['params'])),
+        gauss_params=gauss_params, gauss_aux=gauss_aux,
+        gauss_adam=arena_adam(SimpleNamespace(
+            m=_lane(adam.m, PARAM_FIELDS, i), v=_lane(adam.v, PARAM_FIELDS, i),
+            step=np.asarray(adam.step)[i])))

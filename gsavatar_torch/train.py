@@ -8,7 +8,10 @@ the camera at `train=True`, assembles every loss term (L1, D-SSIM, mask,
 skinning, AIAP, opacity, LPIPS on the foreground crop, the model
 regularizers), runs the backward pass (through K2 and K3 on the card),
 steps the converter's optimizer and the arena Adam, and adds the densify
-statistics. There is no `jit`: the port's arrays are dynamic, so `bucket`
+statistics. The one-frame step is the B = 1 case of `make_batch_step_core`,
+which renders B frames, takes the mean of their losses and makes one
+backward pass and one optimizer step (`parallel/shard.py` reduces its
+metrics). There is no `jit`: the port's arrays are dynamic, so `bucket`
 (the alive prefix) is a slice, and `pair_bucket` / `rect_window` map onto
 the rasterizer's `max_pairs` / `max_rect`.
 
@@ -20,19 +23,25 @@ through `densify_draws`. The frames are picked as the JAX driver picks
 them, popping without replacement through `np.random.default_rng(seed)`,
 so both packages visit the same frames.
 
-The driver (`training`) runs the JAX driver's single-chip route in its
-order: pick the frame, the schedule, the step, validation when due (before
-densify and the reset), densify and prune then `refresh_knn` over the new
-alive-prefix bucket, the opacity reset, the log and the overflow alarm,
-the PLY and the checkpoint. The JAX driver also right-sizes its pair
-arena and tile window from the observed workload (its pair/rect ladder),
-because XLA compiles one step per static shape. The port's pair arrays
-are sized by their count, so it runs at the config's `max_pairs` /
-`max_rect` ceilings and keeps only the alarm: the pair overflow and
-`rect_dropped` counts are host integers in every step, so it checks them
-every iteration, and `strict_overflow` raises. The multi-subject and mesh
-routes (`parallel.subjects`, `parallel.data` with `parallel.model`) are
-not ported (ROADMAP item 14)."""
+The driver (`training`) runs the JAX driver's routes in its order:
+`parallel.subjects` goes to `parallel/multi_subject.py`; `parallel.data`
+>= 1 with `parallel.model` >= 1 takes B = `parallel.frames_per_step` (else
+`parallel.data`) frames per step through `parallel/shard.py:
+make_batch_train_step`, with the JAX driver's ValueErrors when B is not a
+multiple of `data` or `data x model` exceeds the visible devices (on one
+GPU: `data` or `model` above 1). The port places nothing on a mesh: the
+batch runs on the scene's device (the mesh routes are ROADMAP item 14's
+second half). Each iteration picks its B frames, the schedule, the step,
+validation when due (before densify and the reset), densify and prune
+then `refresh_knn` over the new alive-prefix bucket, the opacity reset,
+the log and the overflow alarm, the PLY and the checkpoint. The JAX
+driver also right-sizes its pair arena and tile window from the observed
+workload (its pair/rect ladder), because XLA compiles one step per static
+shape. The port's pair arrays are sized by their count, so it runs at the
+config's `max_pairs` / `max_rect` ceilings and keeps only the alarm: the
+pair overflow and `rect_dropped` counts (summed over a batch's frames) are
+host integers in every step, so it checks them every iteration, and
+`strict_overflow` raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -49,6 +58,7 @@ from gsavatar_torch.core import gaussians as G
 from gsavatar_torch.core.densify import (add_stats_prefix, densify_and_prune,
                                          reset_opacity)
 from gsavatar_torch.core.optim import FIELDS, ArenaAdamState, adam_step
+from gsavatar_torch.device import resolve_device, visible_devices
 from gsavatar_torch.ops import lpips as lpips_mod
 from gsavatar_torch.ops.knn import knn_self
 from gsavatar_torch.ops.ssim import ssim
@@ -198,33 +208,42 @@ def make_loss_fn(scene):
     return loss_fn
 
 
-def make_grad_fn(scene):
-    """grad_fn(state, camera, iteration, weights, draws, active_sh_degree,
-    bucket, raster_cfg) -> (metrics, radii, grads): the forward pass and the
-    backward pass of one step over the first `bucket` arena rows, without
-    the optimizer updates. `grads` holds 'conv' (by parameter name),
-    'subject' (the converter's frozen constants, by buffer name), 'gauss'
-    (GaussianParams) and 'means2d' (bucket, 2), the screen-space gradient
-    of the densify statistics."""
+def make_batch_grad_fn(scene):
+    """grad_fn(state, cameras, iteration, weights, draws, active_sh_degree,
+    bucket, raster_cfg) -> (loss, metrics, radii, grads): the forward pass
+    of each of the B `cameras` with its entry of `draws`, the mean of the B
+    losses (one frame's loss as it is), and one backward pass over the first
+    `bucket` arena rows, without the optimizer updates. `metrics` and
+    `radii` hold one entry per frame. `grads` holds 'conv' (by parameter
+    name), 'subject' (the converter's frozen constants, by buffer name),
+    'gauss' (GaussianParams) and 'means2d', a list of B (bucket, 2)
+    screen-space gradients of the mean loss (the densify statistics)."""
     loss_core = make_loss_fn(scene)
 
-    def grad_fn(state, camera, iteration, weights, draws, active_sh_degree,
+    def grad_fn(state, cameras, iteration, weights, draws, active_sh_degree,
                 bucket, raster_cfg):
         params_b = state.gauss_params.map(
             lambda x: x[:bucket].detach().requires_grad_())
-        means2d = torch.zeros((bucket, 2), device=scene.device,
-                              requires_grad=True)
+        means2d = [torch.zeros((bucket, 2), device=scene.device,
+                               requires_grad=True) for _ in cameras]
         consts = scene.converter.subject_constants()
         for c in consts.values():
             c.requires_grad_(True)
         try:
-            loss, metrics, radii = loss_core(
-                params_b, state.gauss_aux.alive[:bucket],
-                state.gauss_aux.nn_ix[:bucket], means2d, camera, iteration,
-                weights, draws, active_sh_degree, raster_cfg)
+            losses, metrics, radii = [], [], []
+            for camera, d, m2d in zip(cameras, draws, means2d):
+                loss, m, r = loss_core(
+                    params_b, state.gauss_aux.alive[:bucket],
+                    state.gauss_aux.nn_ix[:bucket], m2d, camera, iteration,
+                    weights, d, active_sh_degree, raster_cfg)
+                losses.append(loss)
+                metrics.append(m)
+                radii.append(r)
+            loss = losses[0] if len(losses) == 1 \
+                else torch.stack(losses).mean()
             groups = {'conv': state.conv_params, 'subject': consts,
                       'gauss': {f: getattr(params_b, f) for f in FIELDS},
-                      'means2d': {'': means2d}}
+                      'means2d': dict(enumerate(means2d))}
             leaves = [x for g in groups.values() for x in g.values()]
             with record_function('train/backward'):
                 flat = iter(torch.autograd.grad(loss, leaves,
@@ -235,27 +254,47 @@ def make_grad_fn(scene):
         grads = {name: {k: (lambda g: torch.zeros_like(x) if g is None
                             else g)(next(flat)) for k, x in g.items()}
                  for name, g in groups.items()}
-        return metrics, radii, {
+        return loss.detach(), metrics, radii, {
             'conv': grads['conv'], 'subject': grads['subject'],
             'gauss': G.GaussianParams(**grads['gauss']),
-            'means2d': grads['means2d']['']}
+            'means2d': list(grads['means2d'].values())}
 
     return grad_fn
 
 
-def make_step_core(scene):
-    """step_core(state, camera, iteration, weights, xyz_lr,
-    active_sh_degree=0, bucket=0, pair_bucket=0, rect_window=0, draws=None)
-    -> (state, metrics). Updates `state` in place: the converter's
-    parameters and optimizer state, the arena's first `bucket` rows and
-    their Adam moments, and (when weights['_in_densify_window'] > 0) the
-    densify statistics."""
-    grad_fn = make_grad_fn(scene)
+def make_grad_fn(scene):
+    """grad_fn(state, camera, iteration, weights, draws, active_sh_degree,
+    bucket, raster_cfg) -> (metrics, radii, grads): `make_batch_grad_fn`
+    for one camera, with grads['means2d'] its (bucket, 2) gradient."""
+    batch_grad_fn = make_batch_grad_fn(scene)
 
-    def step_core(state, camera, iteration: int, weights: dict,
-                  xyz_lr: float, active_sh_degree: int = 0, bucket: int = 0,
-                  pair_bucket: int = 0, rect_window: int = 0,
-                  draws: Optional[TrainDraws] = None):
+    def grad_fn(state, camera, iteration, weights, draws, active_sh_degree,
+                bucket, raster_cfg):
+        _, (metrics,), (radii,), grads = batch_grad_fn(
+            state, [camera], iteration, weights, [draws], active_sh_degree,
+            bucket, raster_cfg)
+        return metrics, radii, dict(grads, means2d=grads['means2d'][0])
+
+    return grad_fn
+
+
+def make_batch_step_core(scene):
+    """core(state, cameras, iteration, weights, xyz_lr, active_sh_degree=0,
+    bucket=0, pair_bucket=0, rect_window=0, draws=None) -> (state, loss,
+    metrics): one optimizer step over the B frames of `cameras`, their
+    per-frame metrics a list. Updates `state` in place: the converter's
+    parameters and optimizer state (one step, the clip over the gradient
+    of the mean loss), the arena's first `bucket` rows and their Adam
+    moments, and (when weights['_in_densify_window'] > 0) the densify
+    statistics, frame by frame in order, each frame's screen-space
+    gradient scaled by B back to its own (`gsavatar/parallel/shard.py:
+    180-187`). `draws=None` draws B `TrainDraws` from the state's
+    generator, in frame order."""
+    grad_fn = make_batch_grad_fn(scene)
+
+    def core(state, cameras, iteration: int, weights: dict, xyz_lr: float,
+             active_sh_degree: int = 0, bucket: int = 0, pair_bucket: int = 0,
+             rect_window: int = 0, draws=None):
         bucket = bucket or scene.capacity
         r_cfg = scene.raster_config
         if pair_bucket:
@@ -263,10 +302,10 @@ def make_step_core(scene):
         if rect_window:
             r_cfg = dataclasses.replace(r_cfg, max_rect=rect_window)
         if draws is None:
-            draws = draw(scene, state.generator)
-        metrics, radii, grads = grad_fn(state, camera, iteration, weights,
-                                        draws, active_sh_degree, bucket,
-                                        r_cfg)
+            draws = [draw(scene, state.generator) for _ in cameras]
+        loss, metrics, radii, grads = grad_fn(
+            state, cameras, iteration, weights, draws, active_sh_degree,
+            bucket, r_cfg)
         with torch.no_grad(), record_function('train/update'):
             state.conv_opt = scene.conv_tx.step(
                 state.conv_params, grads['conv'], state.conv_opt,
@@ -289,8 +328,30 @@ def make_step_core(scene):
             state.gauss_adam.step = adam.step
 
             if weights.get('_in_densify_window', 0.0) > 0:
-                state.gauss_aux = add_stats_prefix(
-                    state.gauss_aux, grads['means2d'], radii)
+                n = len(cameras)
+                for g, r in zip(grads['means2d'], radii):
+                    state.gauss_aux = add_stats_prefix(
+                        state.gauss_aux, g * n if n > 1 else g, r)
+        return state, loss, metrics
+
+    return core
+
+
+def make_step_core(scene):
+    """step_core(state, camera, iteration, weights, xyz_lr,
+    active_sh_degree=0, bucket=0, pair_bucket=0, rect_window=0, draws=None)
+    -> (state, metrics): `make_batch_step_core` for one camera, with
+    metrics['n_alive']."""
+    core = make_batch_step_core(scene)
+
+    def step_core(state, camera, iteration: int, weights: dict,
+                  xyz_lr: float, active_sh_degree: int = 0, bucket: int = 0,
+                  pair_bucket: int = 0, rect_window: int = 0,
+                  draws: Optional[TrainDraws] = None):
+        state, _, (metrics,) = core(
+            state, [camera], iteration, weights, xyz_lr, active_sh_degree,
+            bucket, pair_bucket, rect_window,
+            None if draws is None else [draws])
         metrics['n_alive'] = state.gauss_aux.alive.sum()
         return state, metrics
 
@@ -346,7 +407,7 @@ def refresh_knn(state, bucket: int):
     return state
 
 
-def _host(metrics: dict) -> dict:
+def host_metrics(metrics: dict) -> dict:
     """Every value of `metrics` as a Python float, with one device read for
     all its tensors."""
     keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
@@ -397,9 +458,9 @@ def make_validation(scene):
                 camera = scene.device_camera(
                     i, 'train' if name == 'train' else 'test')
                 m, pkg = render_and_score(state, camera, deg, bucket)
-                _overflow_alarm(scene.cfg, iteration, pkg.pair_overflow,
-                                pkg.rect_dropped)
-                for k, v in _host(m).items():
+                overflow_alarm(scene.cfg, iteration, pkg.pair_overflow,
+                               pkg.rect_dropped)
+                for k, v in host_metrics(m).items():
                     acc.setdefault(k, []).append(v)
             for k, v in acc.items():
                 results[f'val/{name}_{k}'] = float(np.mean(v))
@@ -428,7 +489,7 @@ def opacity_histogram(state):
     return torch.bincount(idx, minlength=22)[1:21].to(torch.float32)
 
 
-def _overflow_alarm(cfg, iteration: int, pairs: int, rect: int) -> bool:
+def overflow_alarm(cfg, iteration: int, pairs: int, rect: int) -> bool:
     """Print the JAX driver's warning when work was dropped; raise with
     `strict_overflow`. True when it fired."""
     if pairs + rect <= 0:
@@ -442,16 +503,49 @@ def _overflow_alarm(cfg, iteration: int, pairs: int, rect: int) -> bool:
     return True
 
 
+def alive_bucket(scene, state) -> int:
+    """The bucket of a run's first step: the alive count's, when the alive
+    slots are the prefix that densify's compaction makes, else the whole
+    capacity."""
+    alive = state.gauss_aux.alive.cpu()
+    n_alive = int(alive.sum())
+    return scene.bucket_for(n_alive) if bool(alive[:n_alive].all()) \
+        else scene.capacity
+
+
 def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
              progress: bool = True, device=None):
     """The optimization loop; returns (scene, final state, logger). Runs on
-    the GPU unless `device` (or the given scene's) is the CPU."""
+    the GPU unless `device` (or the given scene's) is the CPU.
+    `parallel.subjects` (with no scene given) trains each subject's avatar
+    (`parallel/multi_subject.py`, which returns its own triple);
+    `parallel.data` >= 1 with `parallel.model` >= 1 takes B =
+    `parallel.frames_per_step` (else `parallel.data`) frames per step
+    (`parallel/shard.py`)."""
     par = cfg.get('parallel') or {}
-    if par.get('subjects') or (int(par.get('data', 0) or 0) >= 1
-                               and int(par.get('model', 0) or 0) >= 1):
-        raise NotImplementedError(
-            "parallel.subjects and the parallel.data x parallel.model mesh "
-            "are not ported yet (ROADMAP item 14)")
+    if scene is None and par.get('subjects'):
+        from gsavatar_torch.parallel.multi_subject import \
+            training_multi_subject
+        return training_multi_subject(cfg, max_iterations=max_iterations,
+                                      log_every=log_every, progress=progress,
+                                      device=device)
+    mesh_data = int(par.get('data', 0) or 0)
+    mesh_model = int(par.get('model', 0) or 0)
+    use_batch = mesh_data >= 1 and mesh_model >= 1
+    batch_frames = int(par.get('frames_per_step', 0) or mesh_data) \
+        if use_batch else 1
+    if use_batch:
+        if batch_frames % mesh_data != 0:
+            raise ValueError(f"parallel.frames_per_step ({batch_frames}) "
+                             f"must be a multiple of parallel.data "
+                             f"({mesh_data})")
+        n_dev = mesh_data * mesh_model
+        n_visible = visible_devices(scene.device if scene is not None
+                                    else resolve_device(device))
+        if n_dev > n_visible:
+            raise ValueError(
+                f"parallel.data x parallel.model = {n_dev} exceeds the "
+                f"{n_visible} visible devices")
     seed = max(int(cfg.get('seed', -1)), 0)
     scene = scene or Scene(cfg, seed=seed, device=device)
     opt = cfg['opt']
@@ -473,14 +567,14 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
     logger = MetricLogger(os.path.join(exp_dir, 'metrics.jsonl'))
     logger.log(0, {'lpips_weights': lpips_mod.weights_kind()})
 
-    step = make_train_step(scene)
+    if use_batch:
+        from gsavatar_torch.parallel.shard import make_batch_train_step
+        step = make_batch_train_step(scene)
+    else:
+        step = make_train_step(scene)
     validation = make_validation(scene)
 
-    alive = state.gauss_aux.alive.cpu()
-    n_alive = int(alive.sum())
-    # the bucket needs the alive prefix that densify's compaction makes
-    bucket = scene.bucket_for(n_alive) if bool(alive[:n_alive].all()) \
-        else scene.capacity
+    bucket = alive_bucket(scene, state)
     if start_checkpoint:
         refresh_knn(state, bucket)
 
@@ -516,8 +610,10 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
         weights['_in_densify_window'] = 1.0 if in_window else 0.0
         xyz_lr = float(scene.xyz_lr_fn(iteration))
         deg = scene.active_sh_degree(iteration)
-        camera = scene.device_camera(next_frame_idx(), 'train')
-        state, metrics = step(state, camera, iteration, weights, xyz_lr,
+        cameras = [scene.device_camera(next_frame_idx(), 'train')
+                   for _ in range(batch_frames)]
+        state, metrics = step(state, cameras if use_batch else cameras[0],
+                              iteration, weights, xyz_lr,
                               active_sh_degree=deg, bucket=bucket)
 
         # validation before densify and the reset, as the JAX driver does
@@ -541,12 +637,13 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
             opacity_reset_step(state)
 
         # the JAX driver's one-shot alarm; the counts are host integers
+        # (a batch step's, summed over its frames)
         if not overflow_alarmed:
-            overflow_alarmed = _overflow_alarm(
+            overflow_alarmed = overflow_alarm(
                 cfg, iteration, metrics['overflow/pairs'],
                 metrics['overflow/rect'])
         if iteration % log_every == 0 or iteration == 1:
-            m = _host(metrics)
+            m = host_metrics(metrics)
             m['iter_time'] = (time.time() - t0) / log_every * 1000.0
             logger.log(iteration, m)
             if progress and (iteration % (log_every * 10) == 0

@@ -11,7 +11,7 @@ false` and `opt.bucket_granularity=0`, so that it keeps one compiled step
 at the config's pair and rect ceilings and the whole-arena bucket, as the
 port runs. The port starts from the JAX initial state (converter weights,
 arena, Adam), sees the JAX ground truth, and takes the JAX step draws
-(`test_torch_train.jax_draws`, from the JAX state's key) and the JAX split
+(`torch_parity.jax_draws`, from the JAX state's key) and the JAX split
 draws (`PRNGKey(iteration)`).
 
 Tolerances, and why:
@@ -42,8 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_train import jax_draws
-from torch_parity import close, to_np
+from torch_parity import close, jax_draws, to_np
 
 from gsavatar_torch import convert
 from gsavatar_torch import train as ttrain
@@ -152,10 +151,10 @@ def runs(tmp_path_factory):
     rots_shape = tuple(js.train_dataset[0].rots.shape)
 
     def draw(scene, generator):
-        key[0], d = jax_draws(key[0], rots_shape, scene.n_reg_pts,
-                              int(scene.skinning_pool_pts.shape[0]),
-                              scene.converter.pose_noise,
-                              scene.converter.view_noise)
+        key[0], (d,) = jax_draws(key[0], rots_shape, scene.n_reg_pts,
+                                 int(scene.skinning_pool_pts.shape[0]),
+                                 scene.converter.pose_noise,
+                                 scene.converter.view_noise)
         return d
 
     def densify_draws(state, iteration):

@@ -24,7 +24,11 @@ cosine > 0.999 and a mean error < 1e-3 of its largest value (bench.py).
 The serving path: the render of `InferenceScene.from_smpl_npz` on the card
 against the CPU's to the render gates; the float32 resize and the
 composite of the apps (`body_replace.composite_frame`) equal bit for
-bit."""
+bit. A B = 2 step (`parallel.frames_per_step`): the small step's gates on
+each frame and on the mean loss. A 2-subject run on the card equals its
+two single runs on the card bit for bit, since every operation of the
+step is deterministic there (cuDNN held to deterministic algorithms; K2
+and K3 give the same bits on every launch)."""
 import numpy as np
 import pytest
 import torch
@@ -614,3 +618,91 @@ def test_float_resize_and_composite_on_the_card_equal_the_cpu(cuda, shape,
     assert torch.equal(
         composite_frame(render.to(cuda), alpha.to(cuda), frame.to(cuda)).cpu(),
         composite_frame(render, alpha, frame))
+
+
+def test_small_batch_step_on_the_card_matches_the_cpu(cuda):
+    """The forward and backward of one B = 2 step (`parallel.
+    frames_per_step`: the mean of two frames' losses) from the same state,
+    cameras and draws, past every delay gate: each frame's loss terms, the
+    mean loss, and every gradient leaf with each frame's screen-space
+    gradient (K1 and K2 twice, K3 twelve times on the card)."""
+    from gsavatar_torch.train import draw, loss_weights, make_batch_grad_fn
+    cfg, cpu, cpu_state = _small_train_scene('cpu')
+    _, gpu, gpu_state = _small_train_scene(cuda)
+    gpu.converter.load_state_dict(cpu.converter.state_dict())
+    gpu_state.gauss_params = cpu_state.gauss_params.map(lambda x: x.to(cuda))
+    gpu_state.gauss_aux = cpu_state.gauss_aux.map(lambda x: x.to(cuda))
+    cams = [cpu.train_dataset[i] for i in range(2)]
+    draws = [draw(cpu, cpu_state.generator) for _ in cams]
+    it = 6000
+    w = loss_weights(cfg, it)
+    bucket = cpu.bucket_for(int(cpu_state.gauss_aux.alive.sum()))
+    counts = (composite.composite_pairs_bwd.launches,
+              segsum_blocked.segment_sum_sorted_blocked.launches)
+    loss_g, m_g, _, g_g = make_batch_grad_fn(gpu)(
+        gpu_state, [c.to(cuda).replace(image=c.image.to(cuda),
+                                       mask=c.mask.to(cuda)) for c in cams],
+        it, w, [d.to(cuda) for d in draws], 0, bucket, gpu.raster_config)
+    torch.cuda.synchronize()
+    assert composite.composite_pairs_bwd.launches == counts[0] + 2
+    assert segsum_blocked.segment_sum_sorted_blocked.launches == \
+        counts[1] + 12
+    loss_c, m_c, _, g_c = make_batch_grad_fn(cpu)(
+        cpu_state, cams, it, w, draws, 0, bucket, cpu.raster_config)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    for frame_g, frame_c in zip(m_g, m_c):
+        for k, v in frame_c.items():
+            if k.startswith('loss/') and abs(float(v)) > 1e-9:
+                assert abs(float(frame_g[k]) - float(v)) <= \
+                    1e-4 * abs(float(v)), k
+    leaves = [(k, g_g['conv'][k], v) for k, v in g_c['conv'].items()]
+    leaves += [(f, getattr(g_g['gauss'], f), getattr(g_c['gauss'], f))
+               for f in ('xyz', 'features_dc', 'features_rest', 'scaling',
+                         'rotation', 'opacity')]
+    leaves += [(f'means2d {b}', a, c) for b, (a, c) in
+               enumerate(zip(g_g['means2d'], g_c['means2d']))]
+    for name, a, b in leaves:
+        a, b = a.double().cpu().reshape(-1), b.double().reshape(-1)
+        if not float(b.abs().max()) > 0.0:
+            continue
+        rel = float((a - b).abs().mean()) / max(float(b.abs().max()), 1e-3)
+        cos = float(a @ b) / (float(a.norm()) * float(b.norm()))
+        assert cos > 0.999 and rel < 1e-3, (name, cos, rel)
+
+
+# a densify (iteration 4) and an opacity reset (iteration 5) in 6 iterations
+DRIVER = ["dataset.n_target_gaussians=512", "opt.skinning_pool_size=2048",
+          "opt.n_reg_pts=128", "model.gaussian.delay=1",
+          "opt.densify_from_iter=2", "opt.densification_interval=4",
+          "opt.densify_until_iter=100", "opt.opacity_reset_interval=5",
+          "opt.iterations=6", "test_interval=0", "seed=0"]
+
+
+def test_two_subjects_on_the_card_equal_their_single_runs(cuda, tmp_path):
+    """A 2-subject run (`parallel.subjects`) on the card against the two
+    single runs with `dataset.seed=i seed=i` on the card: the logged losses,
+    the densify counts and the final arenas bit for bit."""
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.train import training
+    cfg = load_config(SMALL + DRIVER + [
+        "parallel.subjects=[{'seed': 0}, {'seed': 1}]",
+        f"exp_dir={tmp_path / 'ms'}"])
+    _, states, logger = training(cfg, log_every=1, progress=False,
+                                 device=cuda)
+    densify = next(r['densify/n_alive'] for r in logger.history
+                   if 'densify/n_alive' in r)
+    for i, ms_state in enumerate(states):
+        single = load_config(SMALL + DRIVER + [
+            f"dataset.seed={i}", f"seed={i}", f"exp_dir={tmp_path / str(i)}"])
+        _, state, slog = training(single, log_every=1, progress=False,
+                                  device=cuda)
+        want = [r['loss/total_loss'] for r in slog.history
+                if 'loss/total_loss' in r]
+        got = [r[f'subject{i}/loss/total_loss'] for r in logger.history
+               if f'subject{i}/loss/total_loss' in r]
+        assert got == want and len(want) == 6
+        assert densify[i] == next(r['densify/n_alive'] for r in slog.history
+                                  if 'densify/n_alive' in r)
+        for part in ('gauss_params', 'gauss_aux'):
+            for k, v in vars(getattr(state, part)).items():
+                assert torch.equal(getattr(getattr(ms_state, part), k), v), k

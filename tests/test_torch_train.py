@@ -31,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import close, to_np
+from torch_parity import STEP_TINY as TINY
+from torch_parity import (close, grad_gate, jax_conv_mu, jax_draws,
+                          jax_named, to_np)
 
 from gsavatar_torch import convert
 from gsavatar_torch.config import load_config as t_load_config
@@ -39,7 +41,7 @@ from gsavatar_torch.core.optim import FIELDS
 from gsavatar_torch.models.hashgrid import HashGrid as THashGrid
 from gsavatar_torch.scene import Scene as TScene
 from gsavatar_torch.scene import param_group
-from gsavatar_torch.train import TrainDraws, make_grad_fn, make_step_core
+from gsavatar_torch.train import make_grad_fn, make_step_core
 from gsavatar_torch.train import loss_weights as t_loss_weights
 from gsavatar_torch.train import schedule_flags as t_schedule_flags
 
@@ -50,36 +52,8 @@ from gsavatar.train import loss_weights as j_loss_weights
 from gsavatar.train import make_step_core as j_make_step_core
 from gsavatar.train import schedule_flags as j_schedule_flags
 
-TINY = ["dataset.img_hw=[64,64]", "dataset.n_verts=512",
-        "dataset.n_points=768", "dataset.n_target_gaussians=512",
-        "dataset.train_frames=[0,2,1]", "dataset.train_views=['0']",
-        "model.gaussian.capacity=1024", "rasterizer.max_pairs=65536",
-        "opt.skinning_pool_size=2048", "opt.n_reg_pts=128"]
 ITERATION = 6000   # past every delay gate: every module gets a gradient
 STEPS = 3
-
-
-def jax_draws(rng, rots_shape, n_reg, pool_size, pose_noise, view_noise):
-    """The draws of one JAX step from its state's key (train.py:235-237,
-    converter.py:41-50, transforms.py:184, train.py:153), and the next
-    key."""
-    rng, step_key = jax.random.split(rng)
-    k_noise, k_skin = jax.random.split(jax.random.split(step_key, 1)[0])
-    k_gate, k_pose, k_view = jax.random.split(k_noise, 3)
-    k1, k2, k3 = jax.random.split(k_view, 3)
-    v = view_noise
-    angles = jnp.stack([
-        jnp.clip(jax.random.normal(k1) * v, -2 * v, 2 * v),
-        jnp.clip(jax.random.uniform(k2) * v, -2 * v, 2 * v),
-        jnp.clip(jax.random.normal(k3) * v, -2 * v, 2 * v)])
-    assert pose_noise > 0
-    return rng, TrainDraws(
-        pose_apply=float(jax.random.uniform(k_gate) <= 0.5),
-        pose_noise=torch.from_numpy(np.asarray(
-            jax.random.normal(k_pose, rots_shape))),
-        view_angles=torch.from_numpy(np.asarray(angles)),
-        sel=torch.from_numpy(np.asarray(
-            jax.random.randint(k_skin, (n_reg,), 0, pool_size))).long())
 
 
 def _np(tree):
@@ -121,7 +95,7 @@ def run():
     for s in range(STEPS):
         it = ITERATION + s
         jc, tc = cams[s % len(cams)]
-        rng_next, draws = jax_draws(
+        rng_next, (draws,) = jax_draws(
             rng, tuple(jc.rots.shape), ts.n_reg_pts,
             int(ts.skinning_pool_pts.shape[0]), ts.converter.pose_noise,
             ts.converter.view_noise)
@@ -160,41 +134,6 @@ def _snapshot(state):
             nu={k: c(v) for k, v in state.conv_opt.nu.items()}))
 
 
-def _gate(got, want, name, cos_min=0.999, rel_max=1e-3):
-    a = to_np(got).astype(np.float64).ravel()
-    b = np.asarray(want, np.float64).ravel()
-    if not np.abs(b).max() > 0:
-        assert not np.abs(a).max() > 1e-6, name
-        return
-    rel = np.abs(a - b).mean() / max(np.abs(b).max(), 1e-12)
-    cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
-    assert cos > cos_min and rel < rel_max, (name, cos, rel)
-
-
-def _named(tree):
-    """A JAX converter tree ({'params': ...}, leaves of one optimizer group
-    or all) as numpy arrays under the port's state-dict names, through
-    gsavatar_torch.convert (kernels transposed); masked leaves dropped."""
-    def strip(t):
-        if isinstance(t, dict):
-            kept = {k: strip(v) for k, v in t.items()}
-            return {k: v for k, v in kept.items() if v is not None}
-        return None if type(t).__name__ == 'MaskedNode' else t
-    return {k: v.numpy() for k, v in
-            convert.converter_state(_np(strip(tree['params']))).items()}
-
-
-def _jax_mu(conv_opt):
-    """The converter's Adam first moments in the JAX optimizer state (clip,
-    then per group [add_decayed_weights], adam, schedule), by name."""
-    out = {}
-    for group, st in conv_opt[1].inner_states.items():
-        adam = [x for x in st.inner_state if hasattr(x, 'mu')]
-        if adam:
-            out.update(_named(adam[0].mu))
-    return out
-
-
 def test_loss_terms_match(run):
     jm, tm = run['j_metrics'][0], run['t_metrics'][0]
     terms = [k for k in jm if k.startswith('loss/')]
@@ -214,7 +153,7 @@ def test_arena_gradients_match(run):
     for f in FIELDS:
         want = np.asarray(getattr(run['after']['j'].gauss_adam.m, f)) / 0.1
         got = to_np(getattr(run['t_grads']['gauss'], f))
-        _gate(got[alive], want[alive], f)
+        grad_gate(got[alive], want[alive], f)
         assert not got[~alive].any(), f
 
 
@@ -226,12 +165,12 @@ def test_converter_gradients_match(run):
     every = list(g['conv'].values()) + list(g['subject'].values())
     clip = min(1.0, 0.1 / float(torch.sqrt(sum((x * x).sum()
                                                for x in every))))
-    mu = _jax_mu(run['after']['j'].conv_opt)
-    p0 = _named(run['before']['j'].conv_params)
+    mu = jax_conv_mu(run['after']['j'].conv_opt)
+    p0 = jax_named(run['before']['j'].conv_params)
     assert set(mu) == set(g['conv'])
     for k, got in g['conv'].items():
         wd = ts.conv_tx.wd[param_group(k)]
-        _gate(to_np(got) * clip, mu[k] / 0.1 - wd * p0[k], k)
+        grad_gate(to_np(got) * clip, mu[k] / 0.1 - wd * p0[k], k)
 
 
 def _update_gate(dt, dj, g, lr, name):
@@ -262,20 +201,20 @@ def test_parameters_and_optimizer_states_after_the_step(run):
         g = np.asarray(getattr(ja.gauss_adam.m, f)) / 0.1
         _update_gate(dt[alive], dj[alive], g[alive], lrs[f], f)
         assert not dt[~alive].any()
-        _gate(getattr(ta.gauss_adam.m, f)[alive],
+        grad_gate(getattr(ta.gauss_adam.m, f)[alive],
               np.asarray(getattr(ja.gauss_adam.m, f))[alive], f'm/{f}')
-        _gate(getattr(ta.gauss_adam.v, f)[alive],
+        grad_gate(getattr(ta.gauss_adam.v, f)[alive],
               np.asarray(getattr(ja.gauss_adam.v, f))[alive], f'v/{f}')
     assert ta.gauss_adam.step == int(ja.gauss_adam.step) == 1
     assert ta.conv_opt.count == 1
-    pa, pb = _named(ja.conv_params), _named(jb.conv_params)
-    mu = _jax_mu(ja.conv_opt)
+    pa, pb = jax_named(ja.conv_params), jax_named(jb.conv_params)
+    mu = jax_conv_mu(ja.conv_opt)
     conv_tx = run['ts'].conv_tx
     for k in ta.conv_params:
         dt = to_np(ta.conv_params[k] - tb.conv_params[k])
         _update_gate(dt, pa[k] - pb[k], mu[k], conv_tx.lr[param_group(k)], k)
-        _gate(ta.conv_opt.mu[k], mu[k], f'mu/{k}')
-        _gate(ta.conv_opt.nu[k], (conv_tx.wd[param_group(k)] * pb[k]
+        grad_gate(ta.conv_opt.mu[k], mu[k], f'mu/{k}')
+        grad_gate(ta.conv_opt.nu[k], (conv_tx.wd[param_group(k)] * pb[k]
                                   + mu[k] / 0.1 - conv_tx.wd[
                                       param_group(k)] * pb[k]) ** 2 * 1e-3,
               f'nu/{k}')
@@ -287,7 +226,8 @@ def test_densify_statistics_match(run):
     np.testing.assert_array_equal(to_np(ta.max_radii2d),
                                   np.asarray(ja.max_radii2d))
     assert float(ta.denom.sum()) > 0
-    _gate(ta.xyz_gradient_accum, ja.xyz_gradient_accum, 'xyz_gradient_accum')
+    grad_gate(ta.xyz_gradient_accum, ja.xyz_gradient_accum,
+              'xyz_gradient_accum')
 
 
 def test_three_step_trajectory(run):
@@ -322,7 +262,7 @@ def test_param_groups_cover_the_jax_tree(run):
     """Every JAX converter parameter has a port parameter of the same shape,
     and the optimizer groups follow the JAX label rules: the top module,
     with the latent tables apart."""
-    jax_params = _named(run['before']['j'].conv_params)
+    jax_params = jax_named(run['before']['j'].conv_params)
     port = run['ts'].converter.state_dict()
     assert set(jax_params) == set(dict(run['ts'].converter.named_parameters()))
     for k, v in jax_params.items():

@@ -10,6 +10,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 TINY = [
@@ -117,6 +118,106 @@ class TorchAvatar:
                                  convert.converter_state(ja.params))
         self.gview = G.make_view(
             params, aux, use_sh=bool(self.cfg['model']['gaussian']['use_sh']))
+
+
+def jax_draws(rng, rots_shape, n_reg, pool_size, pose_noise, view_noise,
+              frames=1):
+    """The draws of one JAX step over `frames` frames from its state's key,
+    one `TrainDraws` per frame, and the next key: `split(step_key,
+    frames)[b]` is frame b's key (`gsavatar/parallel/shard.py:110-112, 124`;
+    with one frame `gsavatar/train.py:235-237`), then converter.py:41-50,
+    transforms.py:184 and train.py:153."""
+    from gsavatar_torch.train import TrainDraws
+    rng, step_key = jax.random.split(rng)
+    out = []
+    for key in jax.random.split(step_key, frames):
+        k_noise, k_skin = jax.random.split(key)
+        k_gate, k_pose, k_view = jax.random.split(k_noise, 3)
+        k1, k2, k3 = jax.random.split(k_view, 3)
+        v = view_noise
+        angles = jnp.stack([
+            jnp.clip(jax.random.normal(k1) * v, -2 * v, 2 * v),
+            jnp.clip(jax.random.uniform(k2) * v, -2 * v, 2 * v),
+            jnp.clip(jax.random.normal(k3) * v, -2 * v, 2 * v)])
+        assert pose_noise > 0
+        out.append(TrainDraws(
+            pose_apply=float(jax.random.uniform(k_gate) <= 0.5),
+            pose_noise=torch.from_numpy(np.asarray(
+                jax.random.normal(k_pose, rots_shape))),
+            view_angles=torch.from_numpy(np.asarray(angles)),
+            sel=torch.from_numpy(np.asarray(
+                jax.random.randint(k_skin, (n_reg,), 0, pool_size))).long()))
+    return rng, out
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """The port's CPU work of a test module on one thread (a module that
+    imports this fixture uses it): the test workers share the cores, and
+    torch's thread pool, oversubscribed by them, runs the tiny steps about
+    a hundred times slower than one thread does."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# the shape of the step parity tests: tests/test_train_e2e.py's avatar
+# (64x64, 768 Gaussians in 1024 slots) with a small skinning pool
+STEP_TINY = ["dataset.img_hw=[64,64]", "dataset.n_verts=512",
+             "dataset.n_points=768", "dataset.n_target_gaussians=512",
+             "dataset.train_frames=[0,2,1]", "dataset.train_views=['0']",
+             "model.gaussian.capacity=1024", "rasterizer.max_pairs=65536",
+             "opt.skinning_pool_size=2048", "opt.n_reg_pts=128"]
+
+
+def grad_gate(got, want, name, cos_min=0.999, rel_max=1e-3):
+    """bench.py's gradient gate on one leaf: mean error < 1e-3 of the
+    largest |value| and a cosine > 0.999."""
+    a = to_np(got).astype(np.float64).ravel()
+    b = np.asarray(want, np.float64).ravel()
+    if not np.abs(b).max() > 0:
+        assert not np.abs(a).max() > 1e-6, name
+        return
+    rel = np.abs(a - b).mean() / max(np.abs(b).max(), 1e-12)
+    cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+    assert cos > cos_min and rel < rel_max, (name, cos, rel)
+
+
+def jax_named(tree):
+    """A JAX converter tree ({'params': ...}, leaves of one optimizer group
+    or all) as numpy arrays under the port's state-dict names, through
+    gsavatar_torch.convert (kernels transposed); masked leaves dropped."""
+    from gsavatar_torch import convert
+
+    def strip(t):
+        if isinstance(t, dict):
+            kept = {k: strip(v) for k, v in t.items()}
+            return {k: v for k, v in kept.items() if v is not None}
+        return None if type(t).__name__ == 'MaskedNode' else t
+    return {k: v.numpy() for k, v in convert.converter_state(
+        jax.tree.map(np.asarray, strip(tree['params']))).items()}
+
+
+def jax_conv_mu(conv_opt):
+    """The converter's Adam first moments in the JAX optimizer state (clip,
+    then per group [add_decayed_weights], adam, schedule), by name."""
+    out = {}
+    for group, st in conv_opt[1].inner_states.items():
+        adam = [x for x in st.inner_state if hasattr(x, 'mu')]
+        if adam:
+            out.update(jax_named(adam[0].mu))
+    return out
+
+
+def carry_state(scene, state, carried):
+    """Load a `convert.CarriedState` (a JAX state's converter weights,
+    arena and arena Adam) into a port scene and its state."""
+    scene.converter.load_state_dict(carried.converter)
+    state.gauss_params = carried.gauss_params
+    state.gauss_aux = carried.gauss_aux
+    state.gauss_adam = carried.gauss_adam
+    return state
 
 
 def close(a, b, rtol, atol, name=''):
