@@ -1,7 +1,8 @@
 """On-card smoke test of gsavatar_torch: the avatar render path, the
 training step, the full training run with evaluation, the narrow-row
 probe, the real-format data path, the model variants, the serving apps,
-and multi-subject training with B frames per step.
+multi-subject training with B frames per step, and the ('data', 'model')
+mesh over torch.distributed.
 
     python3 chip_smoke.py
 
@@ -105,7 +106,24 @@ them. Phases, any failure ends the run with a non-zero exit:
    `{data: 1, model: 1}` route against the plain route for 5 iterations,
    bit for bit; a small B = 2 step on the card against the CPU at the
    gates of phase 8; each run with the launch counts set to 0 just before
-   and read just after, and its step median and peak memory.
+   and read just after, and its step median and peak memory;
+15. the ('data', 'model') mesh over torch.distributed, at the bench shape
+   and phase 14's config: K1 on the bench frame's pairs and K2 on the
+   bench step's inputs over the M = 2 and 4 tile ranges of the model
+   ranks (`tile_base`), each range against its plain version, the ranges
+   put together against the whole launch bit for bit, and each range's
+   device ms against the whole launch's; the `{data: 1, model: 1}` route
+   at B = 2 with a process group of world size 1 over NCCL against the
+   same run without one, bit for bit, for 5 iterations; two ranks that
+   share the card over gloo (`torch.multiprocessing.spawn`):
+   `{data: 2, model: 1}` and `{data: 1, model: 2}` at B = 2 for 5
+   iterations, both ranks' states equal bit for bit after every step and
+   each route within the CPU tests' gates of the one-device B = 2 route,
+   then four subjects over the two data ranks, subjects 0 and 3 bit-equal
+   to their runs alone; exact launches per rank (K1 and K2 once per frame
+   the rank renders, K3 six times); two NCCL ranks on separate cards when
+   the machine has two GPUs, else one line that says that route did not
+   run. Each route's ms per step.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
@@ -905,7 +923,8 @@ K3_INPUTS = {2: 'hash table', 9: 'pair gradients', 3: 'AIAP gather, C=3',
 
 
 def train_phases():
-    """Phases 6-8; returns the kernel records of K2 and K3."""
+    """Phases 6-8; returns the kernel records of K2 and K3, and K2's
+    arguments in the step (phase 15 splits them by tile range)."""
     launches, seen = train_main()
     if len(seen['k2']) != 1 or len(seen['k3']) != K3_PER_STEP:
         fail(f"captured {len(seen['k2'])} K2 and {len(seen['k3'])} K3 "
@@ -932,21 +951,13 @@ def train_phases():
         'library_ms': lib_ms,
     })
     train_reference()
-    return records
+    return records, seen['k2'][0]
 
 
 def _state_tensors(state):
     """Every tensor of a TrainState and its scalars, by name."""
-    out = {}
-    for part in ('gauss_params', 'gauss_aux'):
-        for k, v in vars(getattr(state, part)).items():
-            out[f'{part}.{k}'] = v
-    for which in ('m', 'v'):
-        for k, v in vars(getattr(state.gauss_adam, which)).items():
-            out[f'adam.{which}.{k}'] = v
-    out.update({f'conv.{k}': v.detach() for k, v in state.conv_params.items()})
-    out.update({f'mu.{k}': v for k, v in state.conv_opt.mu.items()})
-    out.update({f'nu.{k}': v for k, v in state.conv_opt.nu.items()})
+    from gsavatar_torch.parallel.shard import state_tensors
+    out = {k: v.detach() for k, v in state_tensors(state).items()}
     out['generator'] = state.generator.get_state()
     out['step'] = torch.tensor(state.gauss_adam.step)
     out['count'] = torch.tensor(state.conv_opt.count)
@@ -2162,12 +2173,17 @@ class StepTimes:
         setattr(self.module, self.name, self.make)
 
     def median(self) -> float:
-        later = sorted(self.ms[1:])
-        return later[len(later) // 2]
+        return later_median(self.ms)
+
+
+def later_median(ms: list) -> float:
+    """The median of the step times after the first."""
+    later = sorted(ms[1:])
+    return later[len(later) // 2]
 
 
 def rows(logger, key):
-    return {r['step']: r[key] for r in logger.history if key in r}
+    return rows_of(logger.history, key)
 
 
 def p14_cfg(work, tag, extra=()):
@@ -2328,6 +2344,406 @@ def multi_subject_phase(counters, work, gpu):
                     frames=BATCH_FRAMES)
 
 
+# phase 15: the ('data', 'model') mesh over torch.distributed at the bench
+# shape and phase 14's config: K1 and K2 by tile range, the mesh route at
+# world size 1 over NCCL, two ranks that share the card over gloo, and two
+# NCCL ranks on separate cards where the machine has them; 5 iterations a
+# route (no densify: phase 14's first is at 10)
+MESH_SPLITS = (2, 4)
+P15_ITERATIONS = 5
+P15_B2 = BATCH + (f"parallel.frames_per_step={BATCH_FRAMES}",)
+P15_ROUTES = {
+    'data2': ("parallel.data=2", "parallel.model=1",
+              f"parallel.frames_per_step={BATCH_FRAMES}"),
+    'model2': ("parallel.data=1", "parallel.model=2",
+               f"parallel.frames_per_step={BATCH_FRAMES}"),
+}
+# each rank's frames a step, by route: the data axis splits the batch, the
+# model axis renders every frame on each rank over half the tiles
+P15_FRAMES = {'data2': 1, 'model2': BATCH_FRAMES, 'subjects': 2}
+P15_SUBJECTS = (f"parallel.subjects={[{'seed': i} for i in MS_SEEDS]}",
+                "parallel.data=2")
+# a route over ranks against one device's B-frame route: the first step's
+# loss terms bit for bit (the same state and draws, no sum over ranks yet),
+# the later steps' within bench.py's LOSS_RTOL, and each float state tensor
+# at bench.py's gate (GRAD_COS, GRAD_REL), integers exactly. The ranks'
+# gradients are added in another order than autograd adds the frames',
+# and Adam steps by its learning rate in the direction of a gradient that
+# is rounding noise (the isotropic initial Gaussians' rotations): the CPU
+# tests' gates (tests/test_torch_distributed.py: loss terms 1e-6, each
+# tensor's mean difference 1e-5 of its largest value) held over their 3
+# steps at 64^2, but at the bench shape on the card the AIAP loss moved
+# 2.3e-6 by the fifth step and the rotations' mean 2.4e-5
+P15_TIMEOUT = 600
+
+
+def spawn_ranks(fn, n: int, args, timeout: float):
+    """`fn(rank, *args)` on n processes (`torch.multiprocessing.spawn`);
+    fails, and ends them all, if any fails or they outlast `timeout`."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(fn, args=args, nprocs=n, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            fail(f"{fn.__name__} on {n} ranks did not finish in {timeout} s")
+
+
+def tile_range_phase(frame_pairs, k2_args, gpu):
+    """Phase 15, 1: K1 on the bench frame's pairs and K2 on the bench
+    step's inputs, each over the M = 2 and 4 tile ranges of the model
+    ranks: each range against its plain version, the ranges put together
+    against the whole launch bit for bit, and each range's device ms."""
+    from gsavatar_torch.ops.rasterizer import composite as K
+    pd1, ts1 = frame_pairs
+    pd, ts, ct, fwd, grid_x = k2_args
+    num_tiles = ts.shape[0] - 1
+    k1_whole = K.composite_pairs_fwd(pd1, ts1, grid_x)
+    k2_whole = K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x)
+    k1_ms = timed(lambda: K.composite_pairs_fwd(pd1, ts1, grid_x), 100)
+    k2_ms = timed(lambda: K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x), 100)
+    full1, full2 = int(torch.diff(ts1).argmax()), int(torch.diff(ts).argmax())
+    for M in MESH_SPLITS:
+        if num_tiles % M:
+            fail(f"{num_tiles} tiles do not split over {M} model ranks")
+        per = num_tiles // M
+        outs, total = [], torch.zeros_like(k2_whole)
+        ms1, ms2, err1, err2 = [], [], 0.0, 0.0
+        for m in range(M):
+            base = m * per
+            r1, r2 = ts1[base:base + per + 1], ts[base:base + per + 1]
+            ct_r = ct[base:base + per].contiguous()
+            fwd_r = fwd[base:base + per]
+            got = K.composite_pairs_fwd(pd1, r1, grid_x, base)
+            want = K.composite_pairs_fwd_plain(pd1, r1, grid_x, base)
+            g = K.composite_pairs_bwd(pd, r2, ct_r, fwd_r, grid_x, base)
+            g_want = K.composite_pairs_bwd_plain(pd, r2, ct_r, fwd_r, grid_x,
+                                                 base)
+            scale = K.composite_pairs_bwd_scale(pd, r2, ct_r, fwd_r, grid_x,
+                                                base)
+            torch.cuda.synchronize()
+            e1 = float((got - want).abs().max())
+            if not e1 <= K1_TOL or not torch.equal(got[:, 3:5], want[:, 3:5]):
+                fail(f"K1 on tiles {base}..{base + per - 1} disagrees with "
+                     f"its plain version: {e1}")
+            n_off = int(((g - g_want).abs() > K2_TOL * scale).sum())
+            lo, hi = int(r2[0]), int(r2[-1])
+            if n_off or g[:lo].any() or g[hi:].any():
+                fail(f"K2 on tiles {base}..{base + per - 1}: {n_off} values "
+                     f"off its plain version, or rows outside [{lo}, {hi}) "
+                     f"not zero")
+            err1, err2 = max(err1, e1), max(err2, float(
+                (g - g_want).abs().max()))
+            outs.append(got)
+            total += g
+            ms1.append(timed(lambda: K.composite_pairs_fwd(
+                pd1, r1, grid_x, base), 100))
+            ms2.append(timed(lambda: K.composite_pairs_bwd(
+                pd, r2, ct_r, fwd_r, grid_x, base), 100))
+        if not torch.equal(torch.cat(outs), k1_whole):
+            fail(f"K1's {M} ranges put together differ from the whole launch")
+        if not torch.equal(total, k2_whole):
+            fail(f"K2's {M} ranges added differ from the whole launch")
+        for name, ms, whole, full, err in (('K1', ms1, k1_ms, full1, err1),
+                                           ('K2', ms2, k2_ms, full2, err2)):
+            slow = max(range(M), key=lambda m: ms[m])
+            log(f"{name} by tile range, M={M} ({gpu}): ranges "
+                + ", ".join(f"{t:.4f}" for t in ms)
+                + f" ms, sum {sum(ms):.4f}, slowest {ms[slow]:.4f} (range "
+                f"{slow}; the fullest tile {full} is in range {full // per}) "
+                f"against the whole launch's {whole:.4f} ms: "
+                f"{ms[slow] / whole:.3f} of it; each range within its "
+                f"tolerance of its plain version (max abs err {err:.3e}), "
+                f"the ranges put together equal the whole launch bit for bit")
+
+
+def nccl_world_one(counters, work, gpu):
+    """Phase 15, 2: `{data: 1, model: 1}` at B = 2 with a process group of
+    world size 1 over NCCL against the same run without one (the B-frame
+    route of phase 14), bit for bit. Returns the latter's (state, logger,
+    step times): the one-device reference of the routes over ranks."""
+    import torch.distributed as dist
+    from gsavatar_torch.parallel import mesh as mesh_mod
+    s0, l0, t0, _, n0 = single_run(work, 'p15_one', P15_B2, counters,
+                                   max_iterations=P15_ITERATIONS)
+    mesh_mod.initialize_distributed(
+        f'tcp://127.0.0.1:{mesh_mod.free_port()}', 1, 0)
+    try:
+        backend = dist.get_backend()
+        s1, l1, t1, _, n1 = single_run(work, 'p15_nccl1', P15_B2, counters,
+                                       max_iterations=P15_ITERATIONS)
+    finally:
+        dist.destroy_process_group()
+    if backend != 'nccl':
+        fail(f"the world-size-1 group runs {backend}, not NCCL")
+    for label, n in (('B=2 route', n0), ('world-1 NCCL route', n1)):
+        p14_launches(BATCH_FRAMES * P15_ITERATIONS, 0, label, n)
+    a, b = _state_tensors(s0), _state_tensors(s1)
+    bad = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+    if rows(l0, 'loss/total_loss') != rows(l1, 'loss/total_loss') or bad:
+        fail(f"the world-1 NCCL route differs from the B=2 route: {bad[:5]}")
+    log(f"mesh route at world size 1 over NCCL ({gpu}): median "
+        f"{t1.median():.3f} ms per step (steps 2-{P15_ITERATIONS}, host "
+        f"clock, synced) against {t0.median():.3f} without a process group; "
+        f"bit-equal: {P15_ITERATIONS} losses, {len(a)} state tensors")
+    del s1
+    return s0, l0, t0
+
+
+class RankSteps:
+    """While installed, each step that `shard.make_sharded_train_step`
+    makes is timed on the host clock (ended by a device sync), and then
+    every tensor of the state, the generator's state and the step counts
+    are broadcast from rank 0 and compared with this rank's, bit for
+    bit."""
+
+    def __enter__(self):
+        from gsavatar_torch.parallel import shard
+        self.shard, self.make = shard, shard.make_sharded_train_step
+        self.ms, self.checked = [], 0
+        probe = self
+
+        def make(scene, mesh):
+            step = probe.make(scene, mesh)
+
+            def run(state, *a, **k):
+                t0 = time.perf_counter()
+                out = step(state, *a, **k)
+                torch.cuda.synchronize()
+                probe.ms.append((time.perf_counter() - t0) * 1000.0)
+                for name, x in _state_tensors(out[0]).items():
+                    if not torch.equal(mesh.broadcast(x.clone(), 0), x):
+                        fail(f"rank {mesh.rank} differs from rank 0 in "
+                             f"{name} after step {len(probe.ms)}")
+                probe.checked += 1
+                return out
+            return run
+        shard.make_sharded_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.shard.make_sharded_train_step = self.make
+
+    def median(self) -> float:
+        return later_median(self.ms)
+
+
+def kernel_counters():
+    """Each kernel's wrapper by name: its `launches` count the launches."""
+    from gsavatar_torch.ops import segsum_blocked
+    from gsavatar_torch.ops.rasterizer import composite
+    from gsavatar_torch.tools import profile_narrow_dma
+    return {'composite_fwd': composite.composite_pairs_fwd,
+            'composite_bwd': composite.composite_pairs_bwd,
+            'segsum': segsum_blocked.segment_sum_sorted_blocked,
+            'narrow_rows': profile_narrow_dma.run}
+
+
+def p15_rank(rank, port, work):
+    """Phase 15, 3: rank `rank` of two that share the card over gloo: the
+    two single-subject routes (every state compared with rank 0's after
+    every step) and four subjects over the two data ranks. Saves each
+    route's step times, launches and logged rows, rank 0's final states
+    and the states of subjects 0 and 3, under `work`."""
+    import torch.distributed as dist
+    from gsavatar_torch import train
+    from gsavatar_torch.parallel import mesh as mesh_mod
+    from gsavatar_torch.parallel import multi_subject as msm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_mod.initialize_distributed(f'tcp://127.0.0.1:{port}', 2, rank,
+                                    backend='gloo')
+    counters = kernel_counters()
+    out = {}
+    try:
+        for tag, extra in P15_ROUTES.items():
+            cfg = p14_cfg(work, f'p15_{tag}', extra)
+            scene = driver_scene(cfg)
+            with RankSteps() as steps:
+                (_, state, logger), launches = driven(
+                    counters, lambda: train.training(
+                        cfg, scene=scene, log_every=1, progress=False,
+                        max_iterations=P15_ITERATIONS))
+            out[tag] = {'ms': steps.ms, 'checked': steps.checked,
+                        'launches': launches,
+                        'rows': logger.history if logger else None}
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in
+                            _state_tensors(state).items()},
+                           os.path.join(work, f'p15_{tag}.pt'))
+            del scene, state
+        cfg = p14_cfg(work, 'p15_subjects', P15_SUBJECTS)
+        mine = range(2 * rank, 2 * rank + 2)
+        ms = msm.MultiSubjectScene(cfg, seed=SEED, device=DEVICE,
+                                   subjects=mine)
+        for scene in ms.scenes:
+            prerendered(scene)
+        with StepTimes(msm, 'make_multi_subject_step') as t_ms:
+            (_, states, _), launches = driven(
+                counters, lambda: msm.training_multi_subject(
+                    cfg, ms=ms, log_every=1, progress=False,
+                    max_iterations=P15_ITERATIONS))
+        out['subjects'] = {'ms': t_ms.ms, 'launches': launches}
+        for i, state in zip(mine, states):
+            if i in MS_ALONE:
+                torch.save({k: v.cpu() for k, v in
+                            _state_tensors(state).items()},
+                           os.path.join(work, f'p15_subject{i}.pt'))
+        torch.save(out, os.path.join(work, f'p15_rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def p15_nccl_rank(rank, port, work):
+    """Phase 15, 4: rank `rank` of two NCCL ranks, each on its own card:
+    the data route's 5 steps; saves its step times."""
+    global DEVICE
+    import torch.distributed as dist
+    from gsavatar_torch import train
+    from gsavatar_torch.parallel import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE='2')
+    mesh_mod.initialize_distributed(f'tcp://127.0.0.1:{port}', 2, rank)
+    DEVICE = f'cuda:{rank}'
+    try:
+        cfg = p14_cfg(work, f'p15_nccl{rank}', P15_ROUTES['data2'])
+        scene = driver_scene(cfg)
+        with RankSteps() as steps:
+            train.training(cfg, scene=scene, log_every=1, progress=False,
+                           max_iterations=P15_ITERATIONS)
+        torch.save({'backend': dist.get_backend(), 'ms': steps.ms},
+                   os.path.join(work, f'p15_nccl_rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def state_within(got, want, label):
+    """A route over ranks against one device's: integer tensors exactly,
+    each float tensor with a cosine > GRAD_COS and a mean difference below
+    GRAD_REL of its largest |value|. Returns (bit-equal tensors, the worst
+    mean and largest differences over the largest |value|, the lowest
+    cosine)."""
+    same, worst_mean, worst_max, low_cos = 0, (0.0, ''), (0.0, ''), 1.0
+    for k, v in want.items():
+        g, v = got[k].cpu(), v.cpu()
+        if torch.equal(g, v):
+            same += 1
+            continue
+        if not v.dtype.is_floating_point:
+            fail(f"{label}: {k} differs")
+        g, v = g.double().flatten(), v.double().flatten()
+        scale = max(float(v.abs().max()), 1e-30)
+        d = (g - v).abs()
+        mean, big = float(d.mean()) / scale, float(d.max()) / scale
+        cos = float(g @ v / max(float(g.norm() * v.norm()), 1e-300))
+        if not (cos > GRAD_COS and mean < GRAD_REL):
+            fail(f"{label}: {k} cosine {cos:.7f}, mean difference "
+                 f"{mean:.3e} of its largest value (gates > {GRAD_COS}, "
+                 f"< {GRAD_REL:g})")
+        worst_mean = max(worst_mean, (mean, k))
+        worst_max = max(worst_max, (big, k))
+        low_cos = min(low_cos, cos)
+    return same, worst_mean, worst_max, low_cos
+
+
+def mesh_phase(counters, work, gpu, frame_pairs, k2_args):
+    """Phase 15: the mesh, at the bench shape."""
+    from gsavatar_torch.parallel import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    tile_range_phase(frame_pairs, k2_args, gpu)
+    s_ref, l_ref, t_ref = nccl_world_one(counters, work, gpu)
+    want_state = {k: v.cpu() for k, v in _state_tensors(s_ref).items()}
+    del s_ref
+
+    t0 = time.perf_counter()
+    spawn_ranks(p15_rank, 2, (mesh_mod.free_port(), work), P15_TIMEOUT)
+    log(f"two gloo ranks on one card: {time.perf_counter() - t0:.1f} s "
+        f"with their start and set-up")
+    ranks = [torch.load(os.path.join(work, f'p15_rank{r}.pt'))
+             for r in range(2)]
+    loss_keys = [k for k in next(r for r in l_ref.history if 'loss' in r)
+                 if k.startswith('loss')]
+    for tag in P15_ROUTES:
+        for r, res in enumerate(ranks):
+            p14_launches(P15_FRAMES[tag] * P15_ITERATIONS, 0,
+                         f"{tag} rank {r}", res[tag]['launches'])
+            if res[tag]['checked'] != P15_ITERATIONS:
+                fail(f"{tag} rank {r}: {res[tag]['checked']} steps checked")
+        worst_loss = (0.0, '')
+        for key in loss_keys:
+            got, want = rows_of(ranks[0][tag]['rows'], key), rows(l_ref, key)
+            if got[1] != want[1]:
+                fail(f"{tag}: {key} at step 1: {got[1]!r} against one "
+                     f"device's {want[1]!r}")
+            for step in want:
+                rel = abs(got[step] - want[step]) / max(abs(want[step]),
+                                                        1e-30)
+                if not rel <= LOSS_RTOL:
+                    fail(f"{tag}: {key} at step {step}: {got[step]!r} "
+                         f"against one device's {want[step]!r}")
+                worst_loss = max(worst_loss, (rel, f"{key} at step {step}"))
+        same, mean, big, cos = state_within(
+            torch.load(os.path.join(work, f'p15_{tag}.pt')), want_state, tag)
+        log(f"{tag} on two gloo ranks sharing the card ({gpu}): median "
+            + ", ".join(f"{later_median(res[tag]['ms']):.3f}"
+                        for res in ranks)
+            + f" ms per step on ranks 0, 1 (steps 2-{P15_ITERATIONS}, host "
+            f"clock, synced) against one device's {t_ref.median():.3f}; "
+            f"both ranks' states bit-equal after every step; against one "
+            f"device: step 1's loss terms bit-equal, the worst later "
+            f"{worst_loss[0]:.3e} relative ({worst_loss[1] or '-'}), "
+            f"{same} of "
+            f"{len(want_state)} state tensors bit-equal, the worst mean "
+            f"difference {mean[0]:.3e} ({mean[1] or '-'}) and the worst "
+            f"element {big[0]:.3e} ({big[1] or '-'}) of the largest value, "
+            f"the lowest cosine {cos:.7f}; "
+            f"launches per rank {ranks[0][tag]['launches']}")
+    for r, res in enumerate(ranks):
+        p14_launches(P15_FRAMES['subjects'] * P15_ITERATIONS, 0,
+                     f"subjects rank {r}", res['subjects']['launches'])
+    for i in MS_ALONE:
+        state, _, t1, _, _ = single_run(
+            work, f'p15_alone{i}', [f"dataset.seed={MS_SEEDS[i]}",
+                                    f"seed={SEED + i}"],
+            max_iterations=P15_ITERATIONS)
+        got = torch.load(os.path.join(work, f'p15_subject{i}.pt'))
+        want = _state_tensors(state)
+        bad = [k for k in want if not torch.equal(got[k], want[k].cpu())]
+        if bad:
+            fail(f"subject {i} on its data rank differs from its run alone: "
+                 f"{bad[:5]}")
+        del state
+    log(f"four subjects on two gloo data ranks ({gpu}): median "
+        + ", ".join(f"{later_median(res['subjects']['ms']):.3f}"
+                    for res in ranks)
+        + f" ms per iteration of two subjects on ranks 0, 1; subjects "
+        f"{', '.join(map(str, MS_ALONE))} bit-equal to their runs alone "
+        f"({P15_ITERATIONS} iterations, every state tensor)")
+
+    n_gpus = torch.cuda.device_count()
+    if n_gpus >= 2:
+        spawn_ranks(p15_nccl_rank, 2, (mesh_mod.free_port(), work),
+                    P15_TIMEOUT)
+        res = [torch.load(os.path.join(work, f'p15_nccl_rank{r}.pt'))
+               for r in range(2)]
+        log(f"data2 on two NCCL ranks on separate cards ({gpu}): backend "
+            f"{res[0]['backend']}, median "
+            + ", ".join(f"{later_median(r['ms']):.3f}" for r in res)
+            + " ms per step on ranks 0, 1; both ranks' states bit-equal "
+            "after every step")
+    else:
+        log(f"two NCCL ranks on separate cards did not run: this machine "
+            f"has {n_gpus} GPU, and NCCL takes one rank per GPU; that route "
+            f"is untested here")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
+def rows_of(history, key):
+    return {r['step']: r[key] for r in history if key in r}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
@@ -2413,16 +2829,12 @@ def main():
         render_gates(a.opacity_render, b.opacity_render, 'alpha')
 
     # 6-8. the training path, its kernels, and its reference
-    records += train_phases()
+    step_records, k2_args = train_phases()
+    records += step_records
 
     # 9. the training run, a resume, predict; 10. the probe
-    from gsavatar_torch.ops import segsum_blocked
-    from gsavatar_torch.tools import profile_narrow_dma
-    counters = {'composite_fwd': composite.composite_pairs_fwd,
-                'composite_bwd': composite.composite_pairs_bwd,
-                'segsum': segsum_blocked.segment_sum_sorted_blocked,
-                'narrow_rows': profile_narrow_dma.run}
-    if profile_narrow_dma.run.launches:
+    counters = kernel_counters()
+    if counters['narrow_rows'].launches:
         fail("K4 launched on the render or training path")
     # the runs' checkpoints (about 90 MB each) go under build/, which the
     # repository ignores, and are removed at the end
@@ -2463,6 +2875,14 @@ def main():
     work = tempfile.mkdtemp(prefix='ms-', dir=kernels.BUILD)
     try:
         multi_subject_phase(counters, work, gpu)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 15. the mesh; its ranks' files under build/
+    work = tempfile.mkdtemp(prefix='mesh-', dir=kernels.BUILD)
+    try:
+        mesh_phase(counters, work, gpu, (pa.pair_data, pa.tile_start),
+                   k2_args)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

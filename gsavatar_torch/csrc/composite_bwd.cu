@@ -3,10 +3,12 @@
 // Replaces gsavatar/ops/rasterizer/pallas_composite.py:_bwd_kernel (the
 // Pallas TPU kernel behind composite_pairs_bwd, the VJP of
 // make_composite_pairs). Same function: for every pair row of a tile's range
-// [tile_start[t], tile_start[t+1]), the gradients of
+// [tile_start[t], tile_start[t+1]), t a tile of the call's range (global
+// tile tile_base + t, as in K1), the gradients of
 // (m2dx, m2dy, a, b, c, r, g, b, opac), each summed over the tile's 256
 // pixels, written to grad (P, 12) f32 in pair_data's column layout (columns
-// 9-11 zero). Inputs besides the pair arrays: ct, the cotangent of the
+// 9-11 zero; every row outside [tile_start[0], tile_start[num_tiles]) zero).
+// Inputs besides the pair arrays: ct, the cotangent of the
 // forward output (num_tiles, 8, 256) (rows 0-2 colour, 3 alpha, 4 final_T),
 // and fwd, the forward output itself. Per pixel and included pair k, with
 // T_k the transmittance before it, w_k = alpha_k T_k, ct.c the cotangent's
@@ -93,7 +95,7 @@ composite_bwd_kernel(const float* __restrict__ pair_data,
                      const float* __restrict__ ct,
                      const float* __restrict__ fwd,
                      float* __restrict__ partial, int num_pairs, int grid_x,
-                     long long* __restrict__ clocks) {
+                     int tile_base, long long* __restrict__ clocks) {
   extern __shared__ float4 smem[];
   float4* s_geo = smem;                                    // [3][kBatch]
   float4* s_col = s_geo + 3 * kBatch;                      // [3][kBatch]
@@ -112,9 +114,11 @@ composite_bwd_kernel(const float* __restrict__ pair_data,
   const int start = tile_start[t];
   const int end = tile_start[t + 1];
   if (end <= start) return;
-  // the group's pixel rows: pixel p at (x0 + p % 16, y0 + p / 16)
-  const int x0 = (t % grid_x) * kTile;
-  const int y0 = (t / grid_x) * kTile + group * (kGroup / kTile);
+  // the group's pixel rows: pixel p at (x0 + p % 16, y0 + p / 16) of the
+  // global tile tile_base + t
+  const int tg = tile_base + t;
+  const int x0 = (tg % grid_x) * kTile;
+  const int y0 = (tg / grid_x) * kTile + group * (kGroup / kTile);
   float* out = partial + ((size_t)group * num_pairs) * kGrads;
 
   // evaluating warps: their 32 slots of a batch, the lane's prefetched row
@@ -291,7 +295,9 @@ composite_bwd_kernel(const float* __restrict__ pair_data,
 }
 
 // grad[r] = the eight groups' partial rows added in group order for the
-// rows of a tile's range, zero elsewhere and in columns 9-11
+// rows of the call's tiles, [tile_start[0], tile_start[num_tiles]); zero
+// elsewhere and in columns 9-11. `partial` is read only inside that span,
+// where the first kernel wrote every row
 __global__ void __launch_bounds__(kCombineThreads)
 composite_bwd_combine(const float* __restrict__ partial,
                       const int* __restrict__ tile_start, int num_tiles,
@@ -315,17 +321,19 @@ composite_bwd_combine(const float* __restrict__ partial,
 
 }  // namespace
 
-// Plain C entry point for ctypes. `partial` is scratch of 8 * num_pairs * 9
-// f32 (written before it is read); every row of `grad` (num_pairs, 12) is
-// written. `clocks`, when not null, receives per (tile, group) unit and
+// Plain C entry point for ctypes: the num_tiles tiles from global tile
+// tile_base, tile_start their num_tiles + 1 pair offsets. `partial` is
+// scratch of 8 * num_pairs * 9 f32 (the span's rows written before they are
+// read); every row of `grad` (num_pairs, 12) is written, zero outside the
+// span. `clocks`, when not null, receives per (tile, group) unit and
 // warp the cycles the warp spent in its stage and the cycles the unit ran
 // ((num_tiles * 8, 7, 2) int64). Launches both kernels on `stream`, each
 // checked with cudaGetLastError (0 = launched).
 extern "C" int gs_composite_bwd(const void* pair_data, const void* tile_start,
                                 const void* ct, const void* fwd,
                                 void* partial, void* grad, int num_pairs,
-                                int num_tiles, int grid_x, void* clocks,
-                                void* stream) {
+                                int num_tiles, int grid_x, int tile_base,
+                                void* clocks, void* stream) {
   // above the 48 KB a block gets by default: set once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
       composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -337,7 +345,7 @@ extern "C" int gs_composite_bwd(const void* pair_data, const void* tile_start,
         static_cast<const float*>(pair_data),
         static_cast<const int*>(tile_start), static_cast<const float*>(ct),
         static_cast<const float*>(fwd), static_cast<float*>(partial),
-        num_pairs, grid_x, static_cast<long long*>(clocks));
+        num_pairs, grid_x, tile_base, static_cast<long long*>(clocks));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -2,7 +2,10 @@
 //
 // Replaces gsavatar/ops/rasterizer/pallas_composite.py:_fwd_kernel (the
 // Pallas TPU kernel behind composite_pairs_fwd). Same function: for each
-// 16x16 tile t, walk its depth-sorted pairs [tile_start[t], tile_start[t+1])
+// 16x16 tile t of the call's range, the global tile tile_base + t (the
+// range is one rank's slice of the tile grid when the compositor is split
+// over the mesh's model axis; 0 and the whole grid otherwise), walk its
+// depth-sorted pairs [tile_start[t], tile_start[t+1])
 // of pair_data (P, 12) f32 rows [m2dx, m2dy, a, b, c, r, g, b, opac, 0, 0, 0]
 // and, for every pixel of the tile,
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  alpha = min(0.99, opac e^power)
@@ -68,7 +71,7 @@ constexpr int kSmem = 2 * kBatch * (2 * 16 + 4 + 4 * kGroup);
 __global__ void __launch_bounds__(kThreads)
 composite_fwd_kernel(const float* __restrict__ pair_data,
                      const int* __restrict__ tile_start,
-                     float* __restrict__ out, int grid_x) {
+                     float* __restrict__ out, int grid_x, int tile_base) {
   extern __shared__ float4 smem[];
   float4* s_geo = smem;                                  // [2][kBatch]
   float4* s_col = smem + 2 * kBatch;                     // [2][kBatch]
@@ -82,8 +85,9 @@ composite_fwd_kernel(const float* __restrict__ pair_data,
   const int start = tile_start[t];
   const int end = tile_start[t + 1];
   const int pix = group * kGroup + lane;
-  const float px = static_cast<float>((t % grid_x) * kTile + pix % kTile);
-  const float py = static_cast<float>((t / grid_x) * kTile + pix / kTile);
+  const int tg = tile_base + t;     // the global tile: its pixels
+  const float px = static_cast<float>((tg % grid_x) * kTile + pix % kTile);
+  const float py = static_cast<float>((tg / grid_x) * kTile + pix / kTile);
 
   const int n_steps = (end - start + kBatch - 1) / kBatch;
   // an evaluating warp's slots in a batch, and its lane's prefetched row
@@ -185,11 +189,12 @@ composite_fwd_kernel(const float* __restrict__ pair_data,
 
 }  // namespace
 
-// Plain C entry point for ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// Plain C entry point for ctypes: the num_tiles tiles from global tile
+// tile_base, tile_start their num_tiles + 1 pair offsets. Launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int gs_composite_fwd(const void* pair_data, const void* tile_start,
                                 void* out, int num_tiles, int grid_x,
-                                void* stream) {
+                                int tile_base, void* stream) {
   // above the 48 KB a block gets by default: set once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
       composite_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -200,7 +205,7 @@ extern "C" int gs_composite_fwd(const void* pair_data, const void* tile_start,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(pair_data),
         static_cast<const int*>(tile_start), static_cast<float*>(out),
-        grid_x);
+        grid_x, tile_base);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,12 +18,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def visible_devices(device: torch.device) -> int:
-    """The devices of `device`'s kind that this process sees: the CUDA
-    GPUs, or 1 for the CPU."""
-    return torch.cuda.device_count() if device.type == 'cuda' else 1
-
-
 def synchronize(device: torch.device) -> None:
     """Wait for the work queued on `device` (a no-op on the CPU)."""
     if device.type == 'cuda':

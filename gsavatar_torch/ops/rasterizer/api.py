@@ -1,7 +1,9 @@
 """The rasterizer on the pairs route: project -> pairs -> K1 -> untile.
 
 Counterpart of `gsavatar/ops/rasterizer/api.py:rasterize` with its pairs
-route (`_rasterize_pairs`, `_untile`). One call returns the colour image
+route (`_rasterize_pairs`, `_untile`), with the compositor split over the
+mesh's `model` axis inside `parallel.context.sharding_scope` as the JAX
+route splits it. One call returns the colour image
 and the alpha image, both read off the same compositor output; the
 background is blended outside the kernel. There is no backend string: the
 device of the tensors decides (K1 and K2 on CUDA, their plain versions on
@@ -14,6 +16,8 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
+
+from gsavatar_torch.parallel.context import active_mesh
 
 from . import composite as _composite
 from . import pairs as _pairs
@@ -80,8 +84,17 @@ def rasterize(means3d, colors, opacities, cov3d, *, viewmatrix,
                                 config.grid_y, config.max_pairs,
                                 max_rect=config.max_rect)
     with record_function('rasterize/composite'):
-        raw = _composite.CompositePairs.apply(
-            pa.pair_data, pa.tile_start, config.grid_x)    # (T, 8, 256)
+        # under a mesh with more than one `model` rank each rank
+        # composites its tile range (`api.py:147-158` of the JAX package)
+        num_tiles = config.grid_x * config.grid_y
+        mesh = active_mesh()
+        if mesh is not None and mesh.shape['model'] > 1 \
+                and num_tiles % mesh.shape['model'] == 0:
+            raw = _composite.make_composite_pairs_sharded(
+                num_tiles, config.grid_x, mesh)(pa.pair_data, pa.tile_start)
+        else:
+            raw = _composite.CompositePairs.apply(
+                pa.pair_data, pa.tile_start, config.grid_x)   # (T, 8, 256)
 
     def untile(rows):
         return _untile(raw[:, rows, :].transpose(1, 2), config.grid_x,

@@ -2,20 +2,28 @@
 kernels, plain versions and the differentiable compositor.
 
 Counterpart of `gsavatar/ops/rasterizer/pallas_composite.py`
-(`composite_pairs_fwd`, `composite_pairs_bwd`, `make_composite_pairs`).
-The forward functions take the pair arrays of `pairs.build_pairs` and
-return the (num_tiles, 8, 256) tile outputs of the JAX kernel: rows 0-2
-colour without background, row 3 alpha = 1 - final_T, row 4 final_T, rows
-5-7 zero. The backward functions take, besides, the cotangent of that
-output and the output itself, and return the (P, 12) gradient of pair_data
-in its column layout (columns 9-11 zero).
+(`composite_pairs_fwd`, `composite_pairs_bwd`, `make_composite_pairs`,
+`make_composite_pairs_sharded`). The forward functions take the pair
+arrays of `pairs.build_pairs` and return the (num_tiles, 8, 256) tile
+outputs of the JAX kernel: rows 0-2 colour without background, row 3
+alpha = 1 - final_T, row 4 final_T, rows 5-7 zero. The backward functions
+take, besides, the cotangent of that output and the output itself, and
+return the (P, 12) gradient of pair_data in its column layout (columns
+9-11 zero). Each takes `tile_base`, the first global tile of its range, as
+the JAX kernels do (`pallas_composite.py:91-100, 199-215`): `tile_start`
+is then the range's `num_tiles + 1` global pair offsets, the pixels are
+those of the global tiles, and the backward's rows outside the range's
+pairs are zero.
 
 `composite_pairs_fwd` and `composite_pairs_bwd` launch the hand-written
 Hopper kernels (`gsavatar_torch/csrc/composite_fwd.cu`, `composite_bwd.cu`)
 for CUDA tensors and count their launches in `.launches`. Only for CPU
 tensors do they take the plain versions, which the CPU tests and the
 on-card comparisons use. `CompositePairs` is the autograd Function of the
-training path: K1 forward, K2 backward (the plain versions on the CPU)."""
+training path: K1 forward, K2 backward (the plain versions on the CPU).
+`make_composite_pairs_sharded` splits the tile grid over the mesh's
+`model` axis: each rank composites its own range and the collectives of
+`parallel.mesh.Mesh` put the ranges together."""
 from __future__ import annotations
 
 import ctypes
@@ -37,9 +45,10 @@ BWD_WARPS = 7
 BWD_GRADS = 9
 
 
-def pixel_coords(num_tiles: int, grid_x: int, device):
-    """Pixel-centre coordinates (num_tiles, 256) of every tile."""
-    t = torch.arange(num_tiles, device=device)[:, None]
+def pixel_coords(num_tiles: int, grid_x: int, device, tile_base: int = 0):
+    """Pixel-centre coordinates (num_tiles, 256) of the global tiles
+    tile_base .. tile_base + num_tiles - 1."""
+    t = tile_base + torch.arange(num_tiles, device=device)[:, None]
     pix = torch.arange(P_PIX, device=device)[None, :]
     px = (t % grid_x) * TILE + pix % TILE
     py = torch.div(t, grid_x, rounding_mode='floor') * TILE \
@@ -47,7 +56,8 @@ def pixel_coords(num_tiles: int, grid_x: int, device):
     return px.float(), py.float()
 
 
-def composite_pairs_fwd_plain(pair_data, tile_start, grid_x: int):
+def composite_pairs_fwd_plain(pair_data, tile_start, grid_x: int,
+                              tile_base: int = 0):
     """Plain PyTorch K1: a loop over tiles, each a (pairs, 256) alpha matrix
     composited with a cumulative product. Same signature and output as the
     kernel; T after each pair is a running product, so a pair is included
@@ -56,7 +66,7 @@ def composite_pairs_fwd_plain(pair_data, tile_start, grid_x: int):
     out = torch.zeros((num_tiles, OUT_ROWS, P_PIX), dtype=torch.float32,
                       device=pair_data.device)
     out[:, 4] = 1.0
-    px, py = pixel_coords(num_tiles, grid_x, pair_data.device)
+    px, py = pixel_coords(num_tiles, grid_x, pair_data.device, tile_base)
     bounds = tile_start.tolist()
     for t in range(num_tiles):
         s, e = bounds[t], bounds[t + 1]
@@ -101,24 +111,28 @@ def _check_pairs(name, pair_data, tile_start):
         raise ValueError("pair_data must be 16-byte aligned")
 
 
-def composite_pairs_fwd(pair_data, tile_start, grid_x: int):
+def composite_pairs_fwd(pair_data, tile_start, grid_x: int,
+                        tile_base: int = 0):
     """pair_data (P, 12) f32, tile_start (num_tiles + 1,) int32 ->
-    (num_tiles, 8, 256) f32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    (num_tiles, 8, 256) f32: the tiles from global tile `tile_base`. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if pair_data.device.type == 'cpu':
-        return composite_pairs_fwd_plain(pair_data, tile_start, grid_x)
+        return composite_pairs_fwd_plain(pair_data, tile_start, grid_x,
+                                         tile_base)
     _check_pairs('K1', pair_data, tile_start)
     from gsavatar_torch import kernels
     lib = kernels.load('composite_fwd')
     lib.gs_composite_fwd.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.gs_composite_fwd.restype = ctypes.c_int
     num_tiles = tile_start.shape[0] - 1
     out = torch.empty((num_tiles, OUT_ROWS, P_PIX), dtype=torch.float32,
                       device=pair_data.device)
     stream = torch.cuda.current_stream(pair_data.device).cuda_stream
     err = lib.gs_composite_fwd(pair_data.data_ptr(), tile_start.data_ptr(),
-                               out.data_ptr(), num_tiles, grid_x, stream)
+                               out.data_ptr(), num_tiles, grid_x, tile_base,
+                               stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
     composite_pairs_fwd.launches += 1
@@ -144,15 +158,18 @@ def _walk(d, px, py):
     return dx, dy, alpha, T_before, (T_after >= T_STOP) & ~skip
 
 
-def composite_pairs_bwd_plain(pair_data, tile_start, ct, fwd, grid_x: int):
+def composite_pairs_bwd_plain(pair_data, tile_start, ct, fwd, grid_x: int,
+                              tile_base: int = 0):
     """Plain PyTorch K2: a loop over tiles with `_bwd_kernel`'s formulas on
     each (pairs, 256) matrix. The pairs a pixel includes come from the same
     running product of (1 - alpha) as `composite_pairs_fwd_plain`; the
     suffix sum S_k = acc_out - sum_{j<=k} w_j c_j uses the forward output
     `fwd` (rows 0-2), and dL/dT_end = ct[4] - ct[3]. Returns the (P, 12)
-    gradient of pair_data; rows of pairs no pixel includes are zero."""
+    gradient of pair_data; rows of pairs no pixel includes, and every row
+    outside the range's pairs, are zero."""
     grad = torch.zeros_like(pair_data)
-    px, py = pixel_coords(tile_start.shape[0] - 1, grid_x, pair_data.device)
+    px, py = pixel_coords(tile_start.shape[0] - 1, grid_x, pair_data.device,
+                          tile_base)
     bounds = tile_start.tolist()
     for t in range(len(bounds) - 1):
         s, e = bounds[t], bounds[t + 1]
@@ -188,7 +205,8 @@ def composite_pairs_bwd_plain(pair_data, tile_start, ct, fwd, grid_x: int):
     return grad
 
 
-def composite_pairs_bwd_scale(pair_data, tile_start, ct, fwd, grid_x: int):
+def composite_pairs_bwd_scale(pair_data, tile_start, ct, fwd, grid_x: int,
+                              tile_base: int = 0):
     """The size of what each value of `composite_pairs_bwd_plain` sums: its
     formula with every factor and every term in absolute value (the suffix
     S_k as |acc_out| + prefix), summed over the tile's pixels. Taking the
@@ -197,7 +215,8 @@ def composite_pairs_bwd_scale(pair_data, tile_start, ct, fwd, grid_x: int):
     value itself cancels: the yardstick for holding K2 to its plain version
     row by row. (P, 12), zero for the rows no pixel includes."""
     scale = torch.zeros_like(pair_data)
-    px, py = pixel_coords(tile_start.shape[0] - 1, grid_x, pair_data.device)
+    px, py = pixel_coords(tile_start.shape[0] - 1, grid_x, pair_data.device,
+                          tile_base)
     bounds = tile_start.tolist()
     for t in range(len(bounds) - 1):
         s, e = bounds[t], bounds[t + 1]
@@ -233,9 +252,10 @@ def composite_pairs_bwd_scale(pair_data, tile_start, ct, fwd, grid_x: int):
 
 
 def composite_pairs_bwd(pair_data, tile_start, ct, fwd, grid_x: int,
-                        stage_cycles=None):
+                        tile_base: int = 0, stage_cycles=None):
     """pair_data (P, 12) f32, tile_start (num_tiles + 1,) int32, ct and fwd
-    (num_tiles, 8, 256) f32 -> (P, 12) f32. CPU tensors take the plain
+    (num_tiles, 8, 256) f32 -> (P, 12) f32: the tiles from global tile
+    `tile_base`, zero outside their pairs. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise.
 
     `stage_cycles`, for measurement only: a zeroed int64 CUDA tensor
@@ -245,7 +265,7 @@ def composite_pairs_bwd(pair_data, tile_start, ct, fwd, grid_x: int,
     then the gradient warps; untouched for empty tiles)."""
     if pair_data.device.type == 'cpu':
         return composite_pairs_bwd_plain(pair_data, tile_start, ct, fwd,
-                                         grid_x)
+                                         grid_x, tile_base)
     _check_pairs('K2', pair_data, tile_start)
     num_tiles = tile_start.shape[0] - 1
     for name, x in (('ct', ct), ('fwd', fwd)):
@@ -269,7 +289,7 @@ def composite_pairs_bwd(pair_data, tile_start, ct, fwd, grid_x: int,
     from gsavatar_torch import kernels
     lib = kernels.load('composite_bwd')
     lib.gs_composite_bwd.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     lib.gs_composite_bwd.restype = ctypes.c_int
     num_pairs = pair_data.shape[0]
     # each (tile, 32-pixel group) unit's partial sums of its tile's rows,
@@ -281,7 +301,7 @@ def composite_pairs_bwd(pair_data, tile_start, ct, fwd, grid_x: int,
     err = lib.gs_composite_bwd(
         pair_data.data_ptr(), tile_start.data_ptr(), ct.data_ptr(),
         fwd.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-        num_pairs, num_tiles, grid_x, clocks, stream)
+        num_pairs, num_tiles, grid_x, tile_base, clocks, stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
     composite_pairs_bwd.launches += 1
@@ -309,3 +329,61 @@ class CompositePairs(torch.autograd.Function):
         grad = composite_pairs_bwd(pair_data, tile_start, ct.contiguous(),
                                    out, ctx.grid_x)
         return grad, None, None
+
+
+class CompositePairsSharded(torch.autograd.Function):
+    """`CompositePairs` with the tile grid split over the mesh's `model`
+    axis: model rank m owns the tiles [m T/M, (m + 1) T/M). Forward: K1 on
+    the rank's range, written into a zero (T, 8, 256) buffer that is summed
+    over the `model` group. Backward: K2 on the rank's range with that
+    range's cotangent and forward rows, the (P, 12) pair gradient (zero
+    outside the range's pairs) summed over the `model` group, as
+    `pallas_composite.py:404-483` psums it. Every element has one rank that
+    writes it and zeros from the others, so both sums are exact: the
+    result is the whole launch's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, pair_data, tile_start, grid_x: int, mesh):
+        num_tiles = tile_start.shape[0] - 1
+        per = num_tiles // mesh.shape['model']
+        base = mesh.coords['model'] * per
+        out = torch.zeros((num_tiles, OUT_ROWS, P_PIX), dtype=torch.float32,
+                          device=pair_data.device)
+        out[base:base + per] = composite_pairs_fwd(
+            pair_data, tile_start[base:base + per + 1], grid_x, base)
+        mesh.all_reduce(out, 'model')
+        ctx.save_for_backward(pair_data, tile_start, out)
+        ctx.grid_x, ctx.mesh, ctx.range = grid_x, mesh, (base, per)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        pair_data, tile_start, out = ctx.saved_tensors
+        base, per = ctx.range
+        grad = composite_pairs_bwd(
+            pair_data, tile_start[base:base + per + 1],
+            ct[base:base + per].contiguous(), out[base:base + per],
+            ctx.grid_x, base)
+        ctx.mesh.all_reduce(grad, 'model')
+        return grad, None, None, None
+
+
+def make_composite_pairs_sharded(num_tiles: int, grid_x: int, mesh):
+    """The differentiable compositor over the mesh's `model` axis:
+    f(pair_data (P, 12), tile_start (num_tiles + 1,)) -> (num_tiles, 8,
+    256), the same function as `CompositePairs` (counterpart of
+    `pallas_composite.py:404 make_composite_pairs_sharded`). The pair
+    arrays stay replicated over `model`: the pairs are tile-sorted, so a
+    rank's tiles are one contiguous span of them."""
+    if num_tiles % mesh.shape['model']:
+        raise ValueError(f"{num_tiles} tiles do not split over "
+                         f"{mesh.shape['model']} model ranks")
+
+    def f(pair_data, tile_start):
+        if tile_start.shape[0] != num_tiles + 1:
+            raise ValueError(f"tile_start has {tile_start.shape[0]} "
+                             f"entries, not {num_tiles + 1}")
+        return CompositePairsSharded.apply(pair_data, tile_start, grid_x,
+                                           mesh)
+
+    return f

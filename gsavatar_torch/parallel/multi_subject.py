@@ -19,11 +19,19 @@ for bit on the same device, the single-subject run of `train.training`
 with seed + i and dataset overrides i: the same frames (`default_rng(seed +
 i)`), the same draws, the same operations.
 
-`parallel.data = D > 1` puts subject i on `cuda:(i // (S / D))`; the
-subjects still run one after another from one host thread."""
+With `parallel.data` = D > 1 the run is D ranks of a process group
+(`parallel/mesh.py`), and data rank d trains the subjects
+[d S/D, (d + 1) S/D), the block that `P('data')` gives in JAX's
+`_subject_sharding` (`multi_subject.py:98-110, 229-234`); its subjects
+run one after another from its host thread. The subjects exchange no
+gradient. Rank 0 gathers each subject's metrics, validation and densify
+counts (`Mesh.gather_rows`), and alone writes the log and every
+subject's checkpoint (a remote subject's bytes broadcast from its
+rank)."""
 from __future__ import annotations
 
 import copy
+import io
 import os
 import time
 from typing import List, Optional
@@ -32,8 +40,8 @@ import numpy as np
 import torch
 
 from gsavatar_torch import train
-from gsavatar_torch.device import resolve_device
-from gsavatar_torch.scene import Scene
+from gsavatar_torch.parallel import mesh as mesh_mod
+from gsavatar_torch.scene import Scene, checkpoint_path
 from gsavatar_torch.utils.logging import MetricLogger
 
 
@@ -48,39 +56,26 @@ def subject_scene_cfg(cfg: dict, overrides: dict) -> dict:
     return out
 
 
-def subject_devices(n_subjects: int, data: int, device=None) -> list:
-    """Each subject's device: `device` (the GPU by default) for all, or with
-    `data` = D > 1, subject i on cuda:(i // (S / D))."""
-    if data <= 1:
-        return [resolve_device(device)] * n_subjects
-    if n_subjects % data != 0:
-        raise ValueError(f"subjects ({n_subjects}) must be divisible by "
-                         f"parallel.data ({data})")
-    n_gpus = torch.cuda.device_count()
-    if data > n_gpus:
-        raise ValueError(f"parallel.data = {data} exceeds the {n_gpus} "
-                         f"visible GPUs")
-    per = n_subjects // data
-    return [torch.device('cuda', i // per) for i in range(n_subjects)]
-
-
 class MultiSubjectScene:
-    """S single-subject Scenes that share the architecture, the arena
-    capacity, the raster config (so the image size), the train length and
-    the skinning pool's shape; a subject that differs in one raises a
-    ValueError naming the subject and the field."""
+    """The single-subject Scenes of the subjects `subjects` (global
+    indices, default all S) on `device`, subject i with seed + i. They
+    share the architecture, the arena capacity, the raster config (so the
+    image size), the train length and the skinning pool's shape; a subject
+    that differs in one raises a ValueError naming the subject and the
+    field."""
 
-    def __init__(self, cfg: dict, seed: int = 0, device=None):
+    def __init__(self, cfg: dict, seed: int = 0, device=None,
+                 subjects: Optional[range] = None):
         subs = list((cfg.get('parallel') or {}).get('subjects') or [])
         if not subs:
             raise ValueError("cfg.parallel.subjects must be a non-empty "
                              "list of per-subject dataset overrides")
-        devices = subject_devices(
-            len(subs), int(cfg['parallel'].get('data', 0) or 0), device)
         self.cfg = cfg
+        self.n_subjects = len(subs)
+        self.subjects = range(len(subs)) if subjects is None else subjects
         self.scenes: List[Scene] = [
-            Scene(subject_scene_cfg(cfg, ov), seed=seed + i, device=dev)
-            for i, (ov, dev) in enumerate(zip(subs, devices))]
+            Scene(subject_scene_cfg(cfg, subs[i]), seed=seed + i,
+                  device=device) for i in self.subjects]
         fields = {
             'capacity': lambda s: s.capacity,
             'use_sh': lambda s: s.use_sh,
@@ -89,13 +84,12 @@ class MultiSubjectScene:
             'train length': lambda s: len(s.train_dataset),
             'pool shape': lambda s: tuple(s.skinning_pool_pts.shape),
         }
-        s0 = self.scenes[0]
-        for i, s in enumerate(self.scenes[1:], 1):
+        s0, i0 = self.scenes[0], self.subjects[0]
+        for i, s in zip(self.subjects[1:], self.scenes[1:]):
             for name, get in fields.items():
                 if get(s) != get(s0):
                     raise ValueError(f"subject {i}: {name} {get(s)} differs "
-                                     f"from subject 0's {get(s0)}")
-        self.n_subjects = len(self.scenes)
+                                     f"from subject {i0}'s {get(s0)}")
 
     def init_states(self) -> list:
         return [s.init_state() for s in self.scenes]
@@ -157,21 +151,46 @@ def training_multi_subject(cfg: dict, max_iterations=None,
     """The multi-subject driver: the single-subject driver's schedule and
     loss weights, each subject's frames popped without replacement from
     `default_rng(seed + i)`, every subject advancing one iteration per
-    loop. Logs per-subject validation under `subject{i}/...`, the densify
-    counts as lists over the subjects, and rows of each metric's mean over
-    the subjects beside `subject{i}/<key>`; writes each subject's final
-    checkpoint under `exp_dir/subject{i}`. `ms`, the subjects' scenes, is
-    built from `cfg` unless given. Returns (MultiSubjectScene, the S
-    states, logger)."""
+    loop. With `parallel.data` = D > 1 this process is one of D ranks and
+    trains its block of the subjects (on `cuda:LOCAL_RANK` under NCCL
+    unless `device` says otherwise). Rank 0 logs per-subject validation
+    under `subject{i}/...`, the densify counts as lists over the subjects,
+    and rows of each metric's mean over the subjects beside
+    `subject{i}/<key>`, and writes each subject's final checkpoint under
+    `exp_dir/subject{i}`. `ms`, this rank's subjects' scenes, is built from
+    `cfg` unless given. Returns (MultiSubjectScene, this rank's states,
+    logger; None on the other ranks)."""
     par = cfg.get('parallel') or {}
     if int(par.get('model', 0) or 0) > 1:
         raise ValueError("multi-subject training shards subjects over "
                          "'data'; use model=1")
+    S = len(par.get('subjects') or [])
+    D = max(int(par.get('data', 0) or 0), 1)
+    if S % D != 0:
+        raise ValueError(f"subjects ({S}) must be divisible by "
+                         f"parallel.data ({D})")
+    if D > 1:
+        mesh_mod.initialize_distributed()
+        mesh_mod.require_world(D, 'parallel.data')
+        device = device or mesh_mod.rank_device()
+    mesh = mesh_mod.make_mesh(D, data=D, model=1) if D > 1 else None
+    rank = mesh.rank if mesh else 0
+    lead = rank == 0
+    per = S // D
+    mine = range(rank * per, (rank + 1) * per)
     seed = max(int(cfg.get('seed', -1)), 0)
-    ms = ms or MultiSubjectScene(cfg, seed=seed, device=device)
-    S = ms.n_subjects
+    ms = ms or MultiSubjectScene(cfg, seed=seed, device=device,
+                                 subjects=mine)
+    if ms.subjects != mine:
+        raise ValueError(f"the scenes hold subjects {list(ms.subjects)}, "
+                         f"this rank trains {list(mine)}")
     opt = cfg['opt']
     iterations = int(max_iterations or opt['iterations'])
+
+    def gather(rows: dict) -> list:
+        """{subject: row} of this rank's subjects -> the S rows."""
+        return mesh.gather_rows(rows, S) if mesh else \
+            [rows[i] for i in range(S)]
 
     ms_step = make_multi_subject_step(ms)
     densify_step, opacity_reset_step, refresh_knn = \
@@ -180,8 +199,10 @@ def training_multi_subject(cfg: dict, max_iterations=None,
 
     exp_dir = cfg.get('exp_dir') or os.path.join(
         'exp', str(cfg.get('name', 'run')) + '-ms')
-    os.makedirs(exp_dir, exist_ok=True)
-    logger = MetricLogger(os.path.join(exp_dir, 'metrics.jsonl'))
+    logger = None
+    if lead:
+        os.makedirs(exp_dir, exist_ok=True)
+        logger = MetricLogger(os.path.join(exp_dir, 'metrics.jsonl'))
 
     buckets = [train.alive_bucket(s, st) for s, st in zip(ms.scenes, states)]
     flags = dict(densify_until=int(opt['densify_until_iter']),
@@ -193,13 +214,13 @@ def training_multi_subject(cfg: dict, max_iterations=None,
                                                    False)))
 
     # subject i picks its frames as its single-subject run does
-    rngs = [np.random.default_rng(seed + i) for i in range(S)]
-    stacks: List[list] = [[] for _ in range(S)]
+    rngs = [np.random.default_rng(seed + i) for i in mine]
+    stacks: List[list] = [[] for _ in mine]
 
-    def next_frame_idx(i):
-        if not stacks[i]:
-            stacks[i] = list(range(len(ms.scenes[i].train_dataset)))
-        return stacks[i].pop(int(rngs[i].integers(len(stacks[i]))))
+    def next_frame_idx(j):
+        if not stacks[j]:
+            stacks[j] = list(range(len(ms.scenes[j].train_dataset)))
+        return stacks[j].pop(int(rngs[j].integers(len(stacks[j]))))
 
     test_interval = int(cfg.get('test_interval', 0) or 0)
     max_val_frames = cfg.get('max_val_frames')
@@ -212,56 +233,85 @@ def training_multi_subject(cfg: dict, max_iterations=None,
         in_window, do_densify, do_reset, use_ss = train.schedule_flags(
             iteration, **flags)
         weights['_in_densify_window'] = 1.0 if in_window else 0.0
-        cameras = [s.device_camera(next_frame_idx(i), 'train')
-                   for i, s in enumerate(ms.scenes)]
+        cameras = [s.device_camera(next_frame_idx(j), 'train')
+                   for j, s in enumerate(ms.scenes)]
         states, metrics = ms_step(
             states, cameras, iteration, weights,
             active_sh_degree=ms.scenes[0].active_sh_degree(iteration),
             buckets=buckets)
 
         if test_interval > 0 and iteration % test_interval == 0:
-            for i, validation in enumerate(validations):
-                res = validation(states[i], iteration, None, exp_dir,
-                                 max_val_frames=max_val_frames,
-                                 bucket=buckets[i])
-                logger.log(iteration, {f'subject{i}/{k}': v
-                                       for k, v in res.items()})
+            results = gather({i: validation(
+                states[j], iteration, None, exp_dir,
+                max_val_frames=max_val_frames, bucket=buckets[j],
+                quiet=not lead) for j, (i, validation) in
+                enumerate(zip(mine, validations))})
+            for i, res in enumerate(results):
+                if logger:
+                    logger.log(iteration, {f'subject{i}/{k}': v
+                                           for k, v in res.items()})
             t0 = time.time()   # validation is not iteration time
 
         if do_densify:
             states, infos = densify_step(states, iteration, use_ss)
             counts = [dict(zip(info, torch.stack(list(info.values()))
                                .tolist())) for info in infos]
-            logger.log(iteration, {f'densify/{k}': [int(c[k]) for c in counts]
-                                   for k in counts[0]})
             buckets = [s.bucket_for(int(c['n_alive']))
                        for s, c in zip(ms.scenes, counts)]
             states = refresh_knn(states, buckets)
+            counts = gather({i: {k: int(v) for k, v in c.items()}
+                             for i, c in zip(mine, counts)})
+            if logger:
+                logger.log(iteration, {f'densify/{k}': [c[k] for c in counts]
+                                       for k in counts[0]})
         if do_reset:
             states = opacity_reset_step(states)
 
-        for m in metrics:
+        # every rank sees every subject's counts, so all raise together
+        for c in gather({i: {'pairs': m['overflow/pairs'],
+                             'rect': m['overflow/rect']}
+                         for i, m in zip(mine, metrics)}):
             if overflow_alarmed:
                 break
             overflow_alarmed = train.overflow_alarm(
-                cfg, iteration, m['overflow/pairs'], m['overflow/rect'])
+                cfg, iteration, c['pairs'], c['rect'], quiet=not lead)
         if iteration % log_every == 0 or iteration == 1:
-            hosts = [train.host_metrics(m) for m in metrics]
+            hosts = gather({i: train.host_metrics(m)
+                            for i, m in zip(mine, metrics)})
             row = {}
             for k in hosts[0]:
                 row[k] = float(np.mean([h[k] for h in hosts]))
                 for i, h in enumerate(hosts):
                     row[f'subject{i}/{k}'] = h[k]
             row['iter_time'] = (time.time() - t0) / log_every * 1000.0
-            logger.log(iteration, row)
-            if progress and (iteration % (log_every * 10) == 0
-                             or iteration == 1):
+            if logger:
+                logger.log(iteration, row)
+            if lead and progress and (iteration % (log_every * 10) == 0
+                                      or iteration == 1):
                 print(f"[{iteration}/{iterations}] S={S} "
                       f"loss={row['loss/total_loss']:.5f} "
                       f"psnr={row['psnr']:.2f} "
                       f"({row['iter_time']:.0f} ms/it)", flush=True)
             t0 = time.time()
 
-    for i, (s, st) in enumerate(zip(ms.scenes, states)):
-        s.save_checkpoint(st, iterations, os.path.join(exp_dir, f'subject{i}'))
+    for i in range(S):
+        owner = i // per
+        payload = None
+        if owner == rank:
+            j = i - mine[0]
+            if lead:
+                ms.scenes[j].save_checkpoint(
+                    states[j], iterations,
+                    os.path.join(exp_dir, f'subject{i}'))
+                continue
+            buf = io.BytesIO()
+            torch.save(ms.scenes[j].checkpoint(states[j], iterations), buf)
+            payload = buf.getvalue()
+        elif owner == 0:
+            continue
+        payload = mesh.broadcast_bytes(payload, owner)
+        if lead:
+            with open(checkpoint_path(os.path.join(exp_dir, f'subject{i}'),
+                                      iterations), 'wb') as f:
+                f.write(payload)
     return ms, states, logger

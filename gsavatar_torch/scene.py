@@ -127,6 +127,12 @@ class ConverterOptimizer:
         return ConverterOptState(mu=mu, nu=nu, count=count)
 
 
+def checkpoint_path(save_dir: str, iteration: int) -> str:
+    """`<save_dir>/ckpt<iteration>.pt`, absolute, its directory made."""
+    os.makedirs(save_dir, exist_ok=True)
+    return os.path.abspath(os.path.join(save_dir, f"ckpt{iteration}.pt"))
+
+
 @dataclasses.dataclass
 class TrainState:
     gauss_params: G.GaussianParams
@@ -232,12 +238,15 @@ class Scene:
 
     def save_checkpoint(self, state: TrainState, iteration: int,
                         save_dir: str) -> str:
-        path = os.path.abspath(os.path.join(save_dir,
-                                            f"ckpt{iteration}.pt"))
-        os.makedirs(save_dir, exist_ok=True)
+        path = checkpoint_path(save_dir, iteration)
+        torch.save(self.checkpoint(state, iteration), path)
+        return path
+
+    def checkpoint(self, state: TrainState, iteration: int) -> dict:
+        """What `save_checkpoint` writes."""
         fields = lambda p: {f.name: getattr(p, f.name)
                             for f in dataclasses.fields(p)}
-        torch.save({
+        return {
             'gauss_params': fields(state.gauss_params),
             'gauss_aux': fields(state.gauss_aux),
             'gauss_adam': {'m': fields(state.gauss_adam.m),
@@ -248,8 +257,7 @@ class Scene:
                          'count': state.conv_opt.count},
             'generator': state.generator.get_state(),
             'iteration': iteration,
-        }, path)
-        return path
+        }
 
     def load_checkpoint(self, path: str):
         """(TrainState, iteration) from `path`; loads the converter's

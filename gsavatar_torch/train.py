@@ -11,9 +11,10 @@ steps the converter's optimizer and the arena Adam, and adds the densify
 statistics. The one-frame step is the B = 1 case of `make_batch_step_core`,
 which renders B frames, takes the mean of their losses and makes one
 backward pass and one optimizer step (`parallel/shard.py` reduces its
-metrics). There is no `jit`: the port's arrays are dynamic, so `bucket`
-(the alive prefix) is a slice, and `pair_bucket` / `rect_window` map onto
-the rasterizer's `max_pairs` / `max_rect`.
+metrics, and over a mesh sums the data ranks' gradients between the
+backward pass and the update). There is no `jit`: the port's arrays are
+dynamic, so `bucket` (the alive prefix) is a slice, and `pair_bucket` /
+`rect_window` map onto the rasterizer's `max_pairs` / `max_rect`.
 
 torch cannot replay `jax.random`, so the step's random draws are explicit
 (`TrainDraws`): the pose-noise gate and noise, the view-noise angles and
@@ -23,15 +24,20 @@ through `densify_draws`. The frames are picked as the JAX driver picks
 them, popping without replacement through `np.random.default_rng(seed)`,
 so both packages visit the same frames.
 
-The driver (`training`) runs the JAX driver's routes in its order:
-`parallel.subjects` goes to `parallel/multi_subject.py`; `parallel.data`
->= 1 with `parallel.model` >= 1 takes B = `parallel.frames_per_step` (else
-`parallel.data`) frames per step through `parallel/shard.py:
-make_batch_train_step`, with the JAX driver's ValueErrors when B is not a
-multiple of `data` or `data x model` exceeds the visible devices (on one
-GPU: `data` or `model` above 1). The port places nothing on a mesh: the
-batch runs on the scene's device (the mesh routes are ROADMAP item 14's
-second half). Each iteration picks its B frames, the schedule, the step,
+The driver (`training`, `gsavatar/train.py:446-790`) runs the JAX
+driver's routes in its order: `parallel.subjects` goes to
+`parallel/multi_subject.py`; `parallel.data` = D >= 1 with
+`parallel.model` = M >= 1 takes B = `parallel.frames_per_step` (else D)
+frames per step over a D x M mesh (`parallel/mesh.py`,
+`parallel/shard.py:make_sharded_train_step`; `gsavatar/train.py:485-520,
+641-652`), with the JAX driver's ValueErrors when B is not a multiple of D
+or D x M is not the world size of the process group. With D x M > 1 each
+process is one rank (`torchrun`, or `main`'s own spawn, one rank per
+GPU): every rank pops the same frames, renders its data row's, and runs
+validation, densify, the reset and `refresh_knn` on its own copy of the
+state, which stays equal to rank 0's bit for bit; the log, the PLY, the
+checkpoints and the prints are rank 0's (`gsavatar/train.py:475, 519,
+769`). Each iteration picks its B frames, the schedule, the step,
 validation when due (before densify and the reset), densify and prune
 then `refresh_knn` over the new alive-prefix bucket, the opacity reset,
 the log and the overflow alarm, the PLY and the checkpoint. The JAX
@@ -44,6 +50,7 @@ host integers in every step, so it checks them every iteration, and
 `strict_overflow` raises."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -58,10 +65,10 @@ from gsavatar_torch.core import gaussians as G
 from gsavatar_torch.core.densify import (add_stats_prefix, densify_and_prune,
                                          reset_opacity)
 from gsavatar_torch.core.optim import FIELDS, ArenaAdamState, adam_step
-from gsavatar_torch.device import resolve_device, visible_devices
 from gsavatar_torch.ops import lpips as lpips_mod
 from gsavatar_torch.ops.knn import knn_self
 from gsavatar_torch.ops.ssim import ssim
+from gsavatar_torch.parallel.context import sharding_scope
 from gsavatar_torch.renderer import render
 from gsavatar_torch.scene import Scene
 from gsavatar_torch.utils import ply
@@ -210,18 +217,20 @@ def make_loss_fn(scene):
 
 def make_batch_grad_fn(scene):
     """grad_fn(state, cameras, iteration, weights, draws, active_sh_degree,
-    bucket, raster_cfg) -> (loss, metrics, radii, grads): the forward pass
-    of each of the B `cameras` with its entry of `draws`, the mean of the B
-    losses (one frame's loss as it is), and one backward pass over the first
-    `bucket` arena rows, without the optimizer updates. `metrics` and
-    `radii` hold one entry per frame. `grads` holds 'conv' (by parameter
-    name), 'subject' (the converter's frozen constants, by buffer name),
-    'gauss' (GaussianParams) and 'means2d', a list of B (bucket, 2)
-    screen-space gradients of the mean loss (the densify statistics)."""
+    bucket, raster_cfg, frames=0) -> (loss, metrics, radii, grads): the
+    forward pass of each of the n `cameras` with its entry of `draws`, the
+    sum of their losses over `frames` (default n: their mean), and one
+    backward pass over the first `bucket` arena rows, without the optimizer
+    updates. `metrics` and `radii` hold one entry per frame. `grads` holds
+    'conv' (by parameter name), 'subject' (the converter's frozen
+    constants, by buffer name), 'gauss' (GaussianParams) and 'means2d', a
+    list of n (bucket, 2) screen-space gradients of that loss (the densify
+    statistics). A rank of a mesh passes the batch's B as `frames`: the
+    ranks' gradients then add up to the gradient of the batch's mean."""
     loss_core = make_loss_fn(scene)
 
     def grad_fn(state, cameras, iteration, weights, draws, active_sh_degree,
-                bucket, raster_cfg):
+                bucket, raster_cfg, frames: int = 0):
         params_b = state.gauss_params.map(
             lambda x: x[:bucket].detach().requires_grad_())
         means2d = [torch.zeros((bucket, 2), device=scene.device,
@@ -239,8 +248,7 @@ def make_batch_grad_fn(scene):
                 losses.append(loss)
                 metrics.append(m)
                 radii.append(r)
-            loss = losses[0] if len(losses) == 1 \
-                else torch.stack(losses).mean()
+            loss = torch.stack(losses).sum() / (frames or len(losses))
             groups = {'conv': state.conv_params, 'subject': consts,
                       'gauss': {f: getattr(params_b, f) for f in FIELDS},
                       'means2d': dict(enumerate(means2d))}
@@ -278,7 +286,7 @@ def make_grad_fn(scene):
     return grad_fn
 
 
-def make_batch_step_core(scene):
+def make_batch_step_core(scene, exchange=None):
     """core(state, cameras, iteration, weights, xyz_lr, active_sh_degree=0,
     bucket=0, pair_bucket=0, rect_window=0, draws=None) -> (state, loss,
     metrics): one optimizer step over the B frames of `cameras`, their
@@ -289,7 +297,14 @@ def make_batch_step_core(scene):
     statistics, frame by frame in order, each frame's screen-space
     gradient scaled by B back to its own (`gsavatar/parallel/shard.py:
     180-187`). `draws=None` draws B `TrainDraws` from the state's
-    generator, in frame order."""
+    generator, in frame order.
+
+    `exchange` (`parallel/shard.py:DataExchange`, on a mesh with D > 1
+    `data` ranks) makes `cameras` this rank's n rows of a batch of
+    B = n D: the core draws all B (or takes the B `draws` given), renders
+    its rows, and between the backward pass and the update the exchange
+    sums the gradients and gathers the B frames' metrics, radii and
+    screen-space gradients over the `data` group."""
     grad_fn = make_batch_grad_fn(scene)
 
     def core(state, cameras, iteration: int, weights: dict, xyz_lr: float,
@@ -301,11 +316,18 @@ def make_batch_step_core(scene):
             r_cfg = dataclasses.replace(r_cfg, max_pairs=pair_bucket)
         if rect_window:
             r_cfg = dataclasses.replace(r_cfg, max_rect=rect_window)
+        n = len(cameras)
+        size, index = (exchange.size, exchange.index) if exchange else (1, 0)
+        frames = n * size
         if draws is None:
-            draws = [draw(scene, state.generator) for _ in cameras]
+            draws = [draw(scene, state.generator) for _ in range(frames)]
         loss, metrics, radii, grads = grad_fn(
-            state, cameras, iteration, weights, draws, active_sh_degree,
-            bucket, r_cfg)
+            state, cameras, iteration, weights,
+            draws[index * n:(index + 1) * n], active_sh_degree, bucket, r_cfg,
+            frames)
+        if exchange is not None:
+            with record_function('train/exchange'):
+                loss, metrics, radii, grads = exchange(metrics, radii, grads)
         with torch.no_grad(), record_function('train/update'):
             state.conv_opt = scene.conv_tx.step(
                 state.conv_params, grads['conv'], state.conv_opt,
@@ -328,10 +350,9 @@ def make_batch_step_core(scene):
             state.gauss_adam.step = adam.step
 
             if weights.get('_in_densify_window', 0.0) > 0:
-                n = len(cameras)
                 for g, r in zip(grads['means2d'], radii):
                     state.gauss_aux = add_stats_prefix(
-                        state.gauss_aux, g * n if n > 1 else g, r)
+                        state.gauss_aux, g * frames if frames > 1 else g, r)
         return state, loss, metrics
 
     return core
@@ -420,12 +441,14 @@ def host_metrics(metrics: dict) -> dict:
 
 def make_validation(scene):
     """validation(state, iteration, logger, exp_dir=None,
-    max_val_frames=None, bucket=0) -> results: renders the test split and
+    max_val_frames=None, bucket=0, quiet=False) -> results: renders the test
+    split and
     every (len/10)-th training frame at eval, and reports per split the
     means of l1, PSNR, SSIM and LPIPS (f32, keyed by its weight source),
     the opacity histogram of the alive slots and their count. A frame
     whose pairs overflow or whose rects are clamped raises the overflow
-    alarm as a training step does."""
+    alarm as a training step does. `quiet` (a rank other than 0) prints
+    nothing."""
     key = lpips_mod.metric_key()
 
     @torch.no_grad()
@@ -444,7 +467,7 @@ def make_validation(scene):
         return out, pkg
 
     def validation(state, iteration: int, logger, exp_dir=None,
-                   max_val_frames=None, bucket: int = 0):
+                   max_val_frames=None, bucket: int = 0, quiet: bool = False):
         deg = scene.active_sh_degree(iteration)
         n_train = len(scene.train_dataset)
         splits = {'test': list(range(len(scene.test_dataset))),
@@ -459,7 +482,7 @@ def make_validation(scene):
                     i, 'train' if name == 'train' else 'test')
                 m, pkg = render_and_score(state, camera, deg, bucket)
                 overflow_alarm(scene.cfg, iteration, pkg.pair_overflow,
-                               pkg.rect_dropped)
+                               pkg.rect_dropped, quiet=quiet)
                 for k, v in host_metrics(m).items():
                     acc.setdefault(k, []).append(v)
             for k, v in acc.items():
@@ -469,7 +492,7 @@ def make_validation(scene):
         results['val/total_points'] = int(state.gauss_aux.alive.sum())
         if logger is not None:
             logger.log(iteration, results)
-        if 'val/test_psnr' in results:
+        if 'val/test_psnr' in results and not quiet:
             print(f"\n[ITER {iteration}] Evaluating test: "
                   f"PSNR {results['val/test_psnr']:.2f}", flush=True)
         return results
@@ -489,15 +512,18 @@ def opacity_histogram(state):
     return torch.bincount(idx, minlength=22)[1:21].to(torch.float32)
 
 
-def overflow_alarm(cfg, iteration: int, pairs: int, rect: int) -> bool:
-    """Print the JAX driver's warning when work was dropped; raise with
-    `strict_overflow`. True when it fired."""
+def overflow_alarm(cfg, iteration: int, pairs: int, rect: int,
+                   quiet: bool = False) -> bool:
+    """Print the JAX driver's warning when work was dropped (unless
+    `quiet`: a rank other than 0); raise with `strict_overflow`. True when
+    it fired."""
     if pairs + rect <= 0:
         return False
     msg = (f"[gsavatar_torch] WARNING iter {iteration}: rasterizer overflow "
            f"(pairs={pairs}, rect={rect}) — splats are being "
            f"DROPPED or cropped. Raise rasterizer.max_pairs / max_rect.")
-    print(msg, flush=True)
+    if not quiet:
+        print(msg, flush=True)
     if bool(cfg.get('strict_overflow', False)):
         raise RuntimeError(msg)
     return True
@@ -519,9 +545,14 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
     the GPU unless `device` (or the given scene's) is the CPU.
     `parallel.subjects` (with no scene given) trains each subject's avatar
     (`parallel/multi_subject.py`, which returns its own triple);
-    `parallel.data` >= 1 with `parallel.model` >= 1 takes B =
-    `parallel.frames_per_step` (else `parallel.data`) frames per step
-    (`parallel/shard.py`)."""
+    `parallel.data` = D >= 1 with `parallel.model` = M >= 1 takes B =
+    `parallel.frames_per_step` (else D) frames per step over a D x M mesh
+    (`parallel/shard.py:make_sharded_train_step`). With D x M > 1 this
+    process is one rank of a process group of D x M ranks
+    (`parallel/mesh.py:initialize_distributed`, from `torchrun`'s
+    environment unless the caller set one up), on `cuda:LOCAL_RANK` under
+    NCCL unless `device` says otherwise; every rank returns its state,
+    and rank 0 alone its logger (None elsewhere)."""
     par = cfg.get('parallel') or {}
     if scene is None and par.get('subjects'):
         from gsavatar_torch.parallel.multi_subject import \
@@ -531,21 +562,25 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
                                       device=device)
     mesh_data = int(par.get('data', 0) or 0)
     mesh_model = int(par.get('model', 0) or 0)
-    use_batch = mesh_data >= 1 and mesh_model >= 1
+    use_mesh = mesh_data >= 1 and mesh_model >= 1
     batch_frames = int(par.get('frames_per_step', 0) or mesh_data) \
-        if use_batch else 1
-    if use_batch:
+        if use_mesh else 1
+    mesh = None
+    if use_mesh:
+        from gsavatar_torch.parallel import mesh as mesh_mod
+        from gsavatar_torch.parallel import shard
         if batch_frames % mesh_data != 0:
             raise ValueError(f"parallel.frames_per_step ({batch_frames}) "
                              f"must be a multiple of parallel.data "
                              f"({mesh_data})")
         n_dev = mesh_data * mesh_model
-        n_visible = visible_devices(scene.device if scene is not None
-                                    else resolve_device(device))
-        if n_dev > n_visible:
-            raise ValueError(
-                f"parallel.data x parallel.model = {n_dev} exceeds the "
-                f"{n_visible} visible devices")
+        if n_dev > 1:
+            mesh_mod.initialize_distributed()
+        mesh_mod.require_world(n_dev, 'parallel.data x parallel.model')
+        mesh = mesh_mod.make_mesh(n_dev, data=mesh_data, model=mesh_model)
+        if device is None:
+            device = mesh_mod.rank_device()
+    lead = mesh is None or mesh.rank == 0
     seed = max(int(cfg.get('seed', -1)), 0)
     scene = scene or Scene(cfg, seed=seed, device=device)
     opt = cfg['opt']
@@ -555,21 +590,27 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
     if start_checkpoint:
         state, first_iteration = scene.load_checkpoint(str(start_checkpoint))
         first_iteration += 1
-        print(f"Resuming from {start_checkpoint} at iteration "
-              f"{first_iteration}")
+        if lead:
+            print(f"Resuming from {start_checkpoint} at iteration "
+                  f"{first_iteration}")
     else:
         state = scene.init_state()
         first_iteration = 1
 
     exp_dir = cfg.get('exp_dir') or os.path.join('exp',
                                                  str(cfg.get('name', 'run')))
-    os.makedirs(exp_dir, exist_ok=True)
-    logger = MetricLogger(os.path.join(exp_dir, 'metrics.jsonl'))
-    logger.log(0, {'lpips_weights': lpips_mod.weights_kind()})
+    logger = None
+    if lead:
+        os.makedirs(exp_dir, exist_ok=True)
+        logger = MetricLogger(os.path.join(exp_dir, 'metrics.jsonl'))
+        logger.log(0, {'lpips_weights': lpips_mod.weights_kind()})
 
-    if use_batch:
-        from gsavatar_torch.parallel.shard import make_batch_train_step
-        step = make_batch_train_step(scene)
+    if use_mesh:
+        step = shard.make_sharded_train_step(scene, mesh)
+        state = shard.put_replicated(state, mesh)
+        if lead and progress and mesh_mod.world_size() > 1:
+            print(f"Training over mesh {mesh.shape} "
+                  f"({mesh_mod.world_size()} ranks)", flush=True)
     else:
         step = make_train_step(scene)
     validation = make_validation(scene)
@@ -593,6 +634,7 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
                  white_bg=bool(cfg['dataset'].get('white_background',
                                                    False)))
 
+    # every rank pops the same frames (`gsavatar/train.py:641-652`)
     rng = np.random.default_rng(seed)
     data_stack: list = []
 
@@ -602,80 +644,135 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
             data_stack = list(range(len(scene.train_dataset)))
         return data_stack.pop(int(rng.integers(len(data_stack))))
 
+    scope = sharding_scope(mesh) if use_mesh else contextlib.nullcontext()
     t0 = time.time()
-    for iteration in range(first_iteration, iterations + 1):
-        weights = loss_weights(cfg, iteration)
-        in_window, do_densify, do_reset, use_ss = schedule_flags(
-            iteration, **flags)
-        weights['_in_densify_window'] = 1.0 if in_window else 0.0
-        xyz_lr = float(scene.xyz_lr_fn(iteration))
-        deg = scene.active_sh_degree(iteration)
-        cameras = [scene.device_camera(next_frame_idx(), 'train')
-                   for _ in range(batch_frames)]
-        state, metrics = step(state, cameras if use_batch else cameras[0],
-                              iteration, weights, xyz_lr,
-                              active_sh_degree=deg, bucket=bucket)
+    with scope:
+        for iteration in range(first_iteration, iterations + 1):
+            weights = loss_weights(cfg, iteration)
+            in_window, do_densify, do_reset, use_ss = schedule_flags(
+                iteration, **flags)
+            weights['_in_densify_window'] = 1.0 if in_window else 0.0
+            xyz_lr = float(scene.xyz_lr_fn(iteration))
+            deg = scene.active_sh_degree(iteration)
+            idxs = [next_frame_idx() for _ in range(batch_frames)]
+            if use_mesh:
+                cameras = [scene.device_camera(i, 'train')
+                           for i in shard.put_batch(idxs, mesh)]
+            else:
+                cameras = scene.device_camera(idxs[0], 'train')
+            state, metrics = step(state, cameras, iteration, weights, xyz_lr,
+                                  active_sh_degree=deg, bucket=bucket)
 
-        # validation before densify and the reset, as the JAX driver does
-        if (test_interval > 0 and iteration % test_interval == 0) \
-                or iteration in test_iterations:
-            validation(state, iteration, logger, exp_dir,
-                       max_val_frames=max_val_frames, bucket=bucket)
-            t0 = time.time()   # validation is not iteration time
+            # validation before densify and the reset, as the JAX driver
+            # does; on every rank (the compositor's ranges), logged by
+            # rank 0
+            if (test_interval > 0 and iteration % test_interval == 0) \
+                    or iteration in test_iterations:
+                validation(state, iteration, logger, exp_dir,
+                           max_val_frames=max_val_frames, bucket=bucket,
+                           quiet=not lead)
+                t0 = time.time()   # validation is not iteration time
 
-        if do_densify:
-            eps1, eps2 = densify_draws(state, iteration)
-            state, dinfo = densify_step(scene, state, eps1, eps2, use_ss)
-            dinfo = dict(zip(dinfo, torch.stack(list(dinfo.values()))
-                             .tolist()))        # the densify's one read
-            logger.log(iteration, {f'densify/{k}': int(v)
-                                   for k, v in dinfo.items()})
-            bucket = scene.bucket_for(int(dinfo['n_alive']))
-            refresh_knn(state, bucket)
+            if do_densify:
+                eps1, eps2 = densify_draws(state, iteration)
+                state, dinfo = densify_step(scene, state, eps1, eps2, use_ss)
+                dinfo = dict(zip(dinfo, torch.stack(list(dinfo.values()))
+                                 .tolist()))        # the densify's one read
+                if logger:
+                    logger.log(iteration, {f'densify/{k}': int(v)
+                                           for k, v in dinfo.items()})
+                bucket = scene.bucket_for(int(dinfo['n_alive']))
+                refresh_knn(state, bucket)
 
-        if do_reset:
-            opacity_reset_step(state)
+            if do_reset:
+                opacity_reset_step(state)
 
-        # the JAX driver's one-shot alarm; the counts are host integers
-        # (a batch step's, summed over its frames)
-        if not overflow_alarmed:
-            overflow_alarmed = overflow_alarm(
-                cfg, iteration, metrics['overflow/pairs'],
-                metrics['overflow/rect'])
-        if iteration % log_every == 0 or iteration == 1:
-            m = host_metrics(metrics)
-            m['iter_time'] = (time.time() - t0) / log_every * 1000.0
-            logger.log(iteration, m)
-            if progress and (iteration % (log_every * 10) == 0
-                             or iteration == 1):
-                print(f"[{iteration}/{iterations}] "
-                      f"loss={m['loss/total_loss']:.5f} "
-                      f"psnr={m['psnr']:.2f} n={int(m['n_alive'])} "
-                      f"({m['iter_time']:.0f} ms/it)", flush=True)
-            t0 = time.time()
+            # the JAX driver's one-shot alarm; the counts are host integers
+            # (a batch step's, summed over its frames), equal on every rank
+            if not overflow_alarmed:
+                overflow_alarmed = overflow_alarm(
+                    cfg, iteration, metrics['overflow/pairs'],
+                    metrics['overflow/rect'], quiet=not lead)
+            if logger and (iteration % log_every == 0 or iteration == 1):
+                m = host_metrics(metrics)
+                m['iter_time'] = (time.time() - t0) / log_every * 1000.0
+                logger.log(iteration, m)
+                if progress and (iteration % (log_every * 10) == 0
+                                 or iteration == 1):
+                    print(f"[{iteration}/{iterations}] "
+                          f"loss={m['loss/total_loss']:.5f} "
+                          f"psnr={m['psnr']:.2f} n={int(m['n_alive'])} "
+                          f"({m['iter_time']:.0f} ms/it)", flush=True)
+            if iteration % log_every == 0 or iteration == 1:
+                t0 = time.time()
 
-        if iteration in save_iterations:
-            ply.save_arena_ply(
-                os.path.join(exp_dir, 'point_cloud', f'iteration_{iteration}',
-                             'point_cloud.ply'),
-                state.gauss_params, state.gauss_aux)
-        if iteration in checkpoint_iterations:
-            scene.save_checkpoint(state, iteration, exp_dir)
+            if lead and iteration in save_iterations:
+                ply.save_arena_ply(
+                    os.path.join(exp_dir, 'point_cloud',
+                                 f'iteration_{iteration}', 'point_cloud.ply'),
+                    state.gauss_params, state.gauss_aux)
+            if lead and iteration in checkpoint_iterations:
+                scene.save_checkpoint(state, iteration, exp_dir)
 
     return scene, state, logger
 
 
+def ranks_of(cfg: dict) -> int:
+    """The ranks a config trains on: parallel.data x parallel.model, or
+    parallel.data with subjects; 1 on the plain route."""
+    par = cfg.get('parallel') or {}
+    data = int(par.get('data', 0) or 0)
+    model = int(par.get('model', 0) or 0)
+    if par.get('subjects'):
+        return max(data, 1)
+    return data * model if data >= 1 and model >= 1 else 1
+
+
+def _rank_main(rank: int, cfg: dict, world: int, port: int) -> None:
+    """One rank that `main` started: torchrun's environment, then the
+    driver, then the process group's end."""
+    import torch.distributed as dist
+    os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    try:
+        training(cfg, log_every=int(cfg.get('log_every', 10) or 10),
+                 progress=rank == 0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def main(argv=None):
     """`python -m gsavatar_torch.train [key=value ...]`: train the avatar
-    on the GPU, logging to `<exp_dir>/metrics.jsonl`."""
+    on the GPU, logging to `<exp_dir>/metrics.jsonl`. A config on more than
+    one rank (`ranks_of`) joins the process group under `torchrun
+    --nproc_per_node=<ranks> -m gsavatar_torch.train ...`; started plainly,
+    it starts its ranks itself with `torch.multiprocessing.spawn`, one per
+    GPU, as one JAX process drives every visible device."""
     import sys
     from gsavatar_torch.config import load_config
+    from gsavatar_torch.parallel import mesh as mesh_mod
     cfg = load_config(list(argv if argv is not None else sys.argv[1:]))
     cfg['exp_dir'] = cfg.get('exp_dir') or os.path.join('exp',
                                                         str(cfg['name']))
-    print(f"Optimizing {cfg['exp_dir']}")
-    training(cfg, log_every=int(cfg.get('log_every', 10) or 10))
-    print("\nTraining complete.")
+    ranks = ranks_of(cfg)
+    if ranks > 1 and 'RANK' not in os.environ:
+        n_gpus = torch.cuda.device_count()
+        if ranks > n_gpus:
+            raise ValueError(f"the config trains on {ranks} ranks, which "
+                             f"exceeds the {n_gpus} visible GPUs")
+        print(f"Optimizing {cfg['exp_dir']} on {ranks} GPUs")
+        torch.multiprocessing.spawn(
+            _rank_main, args=(cfg, ranks, mesh_mod.free_port()),
+            nprocs=ranks)
+    else:
+        if int(os.environ.get('RANK', 0)) == 0:
+            print(f"Optimizing {cfg['exp_dir']}")
+        training(cfg, log_every=int(cfg.get('log_every', 10) or 10),
+                 progress=int(os.environ.get('RANK', 0)) == 0)
+    if int(os.environ.get('RANK', 0)) == 0:
+        print("\nTraining complete.")
 
 
 if __name__ == '__main__':

@@ -28,7 +28,9 @@ bit. A B = 2 step (`parallel.frames_per_step`): the small step's gates on
 each frame and on the mean loss. A 2-subject run on the card equals its
 two single runs on the card bit for bit, since every operation of the
 step is deterministic there (cuDNN held to deterministic algorithms; K2
-and K3 give the same bits on every launch)."""
+and K3 give the same bits on every launch). K1 and K2 over one model
+rank's tile range (`tile_base`): the same tolerances on the range, and
+the ranges put together equal to the whole launch bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -220,6 +222,41 @@ def test_k2_kernel_matches_plain(cuda, n, seed, scale):
     _, want = _k2_holds(pa.pair_data, pa.tile_start, _cotangent(fwd, seed),
                         fwd, GRID)
     assert float(want[:, :9].abs().amax(0).min()) > 0.0
+
+
+@pytest.mark.parametrize('M', [2, 4])
+def test_k1_k2_tile_ranges(cuda, M):
+    """K1 and K2 over each of the M tile ranges of the model ranks
+    (`tile_base`) against their plain versions on that range, K2's rows
+    outside the range's pairs zero, and the ranges put together (K1's
+    stacked, K2's added) equal to the whole launch bit for bit."""
+    pa = _pairs(3000, 1, 0.08, cuda)
+    pd, ts = pa.pair_data, pa.tile_start
+    whole = composite.composite_pairs_fwd(pd, ts, GRID)
+    ct = _cotangent(whole, 3)
+    whole_g = composite.composite_pairs_bwd(pd, ts, ct, whole, GRID)
+    per = GRID * GRID // M
+    outs, total = [], torch.zeros_like(whole_g)
+    for base in range(0, GRID * GRID, per):
+        r = ts[base:base + per + 1]
+        ct_r, fwd_r = ct[base:base + per].contiguous(), whole[base:base + per]
+        out = composite.composite_pairs_fwd(pd, r, GRID, base)
+        g = composite.composite_pairs_bwd(pd, r, ct_r, fwd_r, GRID, base)
+        torch.cuda.synchronize()
+        want = composite.composite_pairs_fwd_plain(pd, r, GRID, base)
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=1e-5)
+        assert torch.equal(out[:, 3:5], want[:, 3:5])
+        g_want = composite.composite_pairs_bwd_plain(pd, r, ct_r, fwd_r, GRID,
+                                                     base)
+        scale = composite.composite_pairs_bwd_scale(pd, r, ct_r, fwd_r, GRID,
+                                                    base)
+        assert bool(((g - g_want).abs() <= 1e-4 * scale).all())
+        assert not g[:int(r[0])].any() and not g[int(r[-1]):].any()
+        outs.append(out)
+        total += g
+    assert torch.equal(torch.cat(outs), whole)
+    assert torch.equal(total, whole_g)
 
 
 def test_k2_heavy_tile_among_light_tiles(cuda):

@@ -255,7 +255,8 @@ def test_subjects_equal_their_single_runs(tmp_path):
     (["parallel.subjects=[{'seed': 0}, {'seed': 1}, {'seed': 2}]",
       "parallel.data=2"],
      r"subjects \(3\) must be divisible by parallel\.data \(2\)"),
-    (["parallel.data=2"], r"parallel\.data = 2 exceeds the \d+ visible GPUs"),
+    (["parallel.data=2"],
+     r"parallel\.data = 2 exceeds the \d+ visible devices"),
     (["parallel.subjects=[{'seed': 0}, {'train_frames': [0, 3, 1]}]"],
      r"subject 1: train length 3 differs from subject 0's 2"),
 ])

@@ -162,13 +162,9 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-# the shape of the step parity tests: tests/test_train_e2e.py's avatar
-# (64x64, 768 Gaussians in 1024 slots) with a small skinning pool
-STEP_TINY = ["dataset.img_hw=[64,64]", "dataset.n_verts=512",
-             "dataset.n_points=768", "dataset.n_target_gaussians=512",
-             "dataset.train_frames=[0,2,1]", "dataset.train_views=['0']",
-             "model.gaussian.capacity=1024", "rasterizer.max_pairs=65536",
-             "opt.skinning_pool_size=2048", "opt.n_reg_pts=128"]
+# the shape of the step parity tests, defined beside the multi-process
+# tests' ranks, which import no JAX
+from torch_dist_workers import STEP_TINY  # noqa: E402,F401
 
 
 def grad_gate(got, want, name, cos_min=0.999, rel_max=1e-3):
@@ -284,3 +280,63 @@ def write_torch_checkpoint(path, state, iteration):
                 'generator': torch.Generator().get_state(),
                 'iteration': iteration}, str(path))
     return str(path)
+
+
+# the compositor's grid for the tile-range tests: 4 x 4 tiles of a 64 x 64
+# image, and the JAX kernels' chunk of pair rows
+GRID = 4
+TILES = GRID * GRID
+PAIR_CHUNK = 32
+
+
+def grid_pairs(n=120, seed=5):
+    """tests/test_torch_raster.py's random scene of n Gaussians through the
+    port's project and pair build on the 4 x 4 grid of a 64 x 64 image:
+    (pair_data, tile_start) and a cotangent of the compositor's output,
+    uniform in [-1, 1]."""
+    from gsavatar_torch.ops.rasterizer.pairs import build_pairs
+    from gsavatar_torch.ops.rasterizer.project import project
+    from gsavatar.camera.camera import make_camera
+    from gsavatar.utils.transforms import covariance_from_scaling_rotation
+    H = W = 64
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    s = (0.05 * (0.5 + rng.random((n, 3)))).astype(np.float32)
+    cov = np.asarray(covariance_from_scaling_rotation(
+        jnp.asarray(s), 1.0, jnp.asarray(q)))
+    colors = rng.random((n, 3)).astype(np.float32)
+    opac = rng.uniform(0.3, 0.95, (n, 1)).astype(np.float32)
+    cam = make_camera(R=np.eye(3), T=np.array([0.0, 0.0, 3.0]), fovx=0.8,
+                      fovy=0.8, image=np.zeros((H, W, 3), np.float32),
+                      mask=np.zeros((H, W), np.float32),
+                      rots=np.zeros((1, 24, 9)), Jtrs=np.zeros((1, 24, 3)),
+                      bone_transforms=np.tile(np.eye(4), (24, 1, 1)))
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))
+    proj = project(t(means), t(cov), t(cam.world_view_transform),
+                   t(cam.full_proj_transform), cam.tanfovx, cam.tanfovy, W, H)
+    pa = build_pairs(proj, t(colors), t(opac), GRID, GRID, 2 ** 13)
+    assert pa.n_pairs > 0 and pa.pair_overflow == 0
+    ct = rng.uniform(-1.0, 1.0, (TILES, 8, 256)).astype(np.float32)
+    return pa.pair_data, pa.tile_start, torch.from_numpy(ct)
+
+
+def padded_pairs(pair_data):
+    """pair_data as the JAX kernels take it: PAIR_CHUNK rows of tail
+    padding, PAIR_LANES lanes."""
+    from gsavatar.ops.rasterizer.pallas_composite import PAIR_LANES
+    pd = np.zeros((pair_data.shape[0] + PAIR_CHUNK, PAIR_LANES), np.float32)
+    pd[:pair_data.shape[0], :12] = pair_data.numpy()
+    return jnp.asarray(pd)
+
+
+def tile_column_scale(values, tile_start):
+    """|values| (P, C) -> the largest |value| of each row's column in the
+    row's tile, per element."""
+    ts = np.asarray(tile_start)
+    v = np.abs(np.asarray(values))
+    out = np.zeros_like(v)
+    for t in range(len(ts) - 1):
+        if ts[t + 1] > ts[t]:
+            out[ts[t]:ts[t + 1]] = v[ts[t]:ts[t + 1]].max(0)
+    return out
