@@ -129,6 +129,7 @@ The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}."""
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -1823,17 +1824,17 @@ RENDER_MAX = 1.0 + 1e-5  # a render's colour: 1 plus the f32 rounding of
                          # its compositing sums
 
 
-def motion_npz(path):
-    """A CLIFF-format motion: SERVE_MOTION frames of small seeded body
-    rotations, zero shape, a global_t 4 m in front of the camera and
-    centred on the body, focal 1000."""
+def motion_npz(path, n=SERVE_MOTION):
+    """A CLIFF-format motion: n frames of small seeded body rotations, zero
+    shape, a global_t 4 m in front of the camera and centred on the body,
+    focal 1000."""
     import numpy as np
     rng = np.random.default_rng(SEED + 13)
-    pose = (0.1 * rng.standard_normal((SERVE_MOTION, 72))).astype(np.float32)
+    pose = (0.1 * rng.standard_normal((n, 72))).astype(np.float32)
     pose[:, :3] = 0.0
     global_t = (np.array([0.0, 0.2, 4.0])
-                + 0.02 * rng.standard_normal((SERVE_MOTION, 3)))
-    np.savez(path, pose=pose, shape=np.zeros((SERVE_MOTION, 10), np.float32),
+                + 0.02 * rng.standard_normal((n, 3)))
+    np.savez(path, pose=pose, shape=np.zeros((n, 10), np.float32),
              global_t=global_t.astype(np.float32), focal_l=np.float32(1000.0))
     return path
 
@@ -2744,6 +2745,504 @@ def rows_of(history, key):
     return {r['step']: r[key] for r in history if key in r}
 
 
+# phase 16: the custom-video tooling. A 12-frame video at the custom
+# dataset's raw size (`data/mydataset.MyDataset.RAW_HW`) and its
+# segmentation's mask stack at half that size go through steps 2-6 of
+# `tooling.build_dataset` into a ZJU-format tree, which the port preloads
+# and trains on. The card's machine has no OpenCV, so `StandInVideo` stands
+# in for `motion/streams.VideoStream`; the committed digests
+# (tests/fixtures/torch_tooling, written on the CPU and held there to
+# OpenCV's and the JAX package's output) say what the tree must hold.
+TOOL_FRAMES = 12
+TOOL_RAW = (1080, 1920)
+TOOL_MASK = (540, 960)
+TOOL_STEPS = 10
+TOOL_VAL = (5, 10)
+TOOL_VAL_FRAMES = 2      # per split and validation
+TOOL_TRACE = (3, 6)      # the profiler's window of iterations
+TOOL_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             'tests', 'fixtures', 'torch_tooling')
+# the kernels' names in a trace
+TRACE_NAMES = {'composite_fwd': 'composite_fwd_kernel',
+               'composite_bwd': 'composite_bwd_kernel',
+               'segsum': 'segsum_chunks'}
+
+
+def tooling_frame(i: int):
+    """Video frame i: (1080, 1920, 3) uint8 RGB, smooth seeded content."""
+    import numpy as np
+    h, w = TOOL_RAW
+    rng = np.random.default_rng(SEED + 100 + i)
+    y, x = np.mgrid[0:h, 0:w] / h
+    img = np.stack([128 + 100 * np.sin(6 * x + 3 * y + 1 + 0.3 * i),
+                    128 + 90 * np.cos(9 * y + 0.5 - 0.2 * i),
+                    128 + 60 * np.sin(5 * (x + y) + 0.1 * i)], -1)
+    img += rng.normal(0, 2, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def tooling_masks():
+    """The segmentation's (TOOL_FRAMES, 540, 960) bool stack: per frame one
+    body-shaped blob (head, torso, arms, legs) with a hole in the torso,
+    moved and swung by seeded amounts."""
+    import numpy as np
+    h, w = TOOL_MASK
+    rng = np.random.default_rng(SEED + 99)
+    yy, xx = np.mgrid[0:h, 0:w]
+
+    def ellipse(cx, cy, a, b, theta=0.0):
+        u = (xx - cx) * np.cos(theta) + (yy - cy) * np.sin(theta)
+        v = -(xx - cx) * np.sin(theta) + (yy - cy) * np.cos(theta)
+        return (u / a) ** 2 + (v / b) ** 2 < 1
+
+    out = np.zeros((TOOL_FRAMES, h, w), bool)
+    for i in range(TOOL_FRAMES):
+        cx, cy = 480 + rng.uniform(-40, 40), 270 + rng.uniform(-15, 15)
+        swing = rng.uniform(-0.3, 0.3)
+        m = ellipse(cx, cy - 170, 32, 40)                        # head
+        m |= ellipse(cx, cy - 30, 70, 110)                       # torso
+        m |= ellipse(cx - 95, cy - 40, 18, 95, 0.5 + swing)      # arms
+        m |= ellipse(cx + 95, cy - 40, 18, 95, -0.5 - swing)
+        m |= ellipse(cx - 35, cy + 150, 22, 100, 0.1 - swing)    # legs
+        m |= ellipse(cx + 35, cy + 150, 22, 100, -0.1 + swing)
+        m &= ~ellipse(cx + 10, cy - 20, 16, 28)                  # the hole
+        out[i] = m
+    return out
+
+
+def tooling_keypoints():
+    """(24, 3) seeded keypoints over the first frame: some off the image,
+    some with no confidence, the head-top joint's set (MPII bones)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 98)
+    h, w = TOOL_RAW
+    kp = np.stack([rng.uniform(-100, w + 100, 24),
+                   rng.uniform(-100, h + 100, 24),
+                   rng.uniform(-0.3, 1.0, 24)], 1)
+    kp[13, 2] = 0.9
+    return kp
+
+
+class StandInVideo:
+    """`motion/streams.VideoStream`'s interface over the seeded frames (the
+    path is not opened)."""
+
+    def __init__(self, path, focal=None):
+        self.height, self.width = TOOL_RAW
+        self.fps = 30.0
+        self.n_frames = TOOL_FRAMES
+
+    def __len__(self):
+        return self.n_frames
+
+    def __iter__(self):
+        for i in range(self.n_frames):
+            yield tooling_frame(i)
+
+    def release(self):
+        pass
+
+
+class ToolTimes:
+    """While installed (it may be entered more than once), the host time
+    (device synced) of each call of the build's Lanczos resize, JPEG
+    write, PNG write and `mask_to_yolo_txt`."""
+
+    def __init__(self):
+        self.ms = {}
+        self._undo = []
+
+    def _wrap(self, obj, name, label):
+        fn = getattr(obj, name)
+        ms = self.ms.setdefault(label, [])
+
+        def timed_call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        self._undo.append((obj, name, fn))
+        setattr(obj, name, timed_call)
+
+    def __enter__(self):
+        from gsavatar_torch import native
+        from gsavatar_torch.data import image_ops
+        from gsavatar_torch.tooling import build_dataset
+        from gsavatar_torch.utils import png
+        self._wrap(image_ops, 'resize_lanczos4', 'Lanczos-4 mask resize')
+        self._wrap(native, 'write_jpeg', 'JPEG write')
+        self._wrap(png, 'write_png', 'PNG write')
+        self._wrap(build_dataset, 'mask_to_yolo_txt',
+                   'mask_to_yolo_txt (PNG read, contours, fill)')
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self._undo):
+            setattr(obj, name, fn)
+
+
+def add_rest_shape(models_dir, assets):
+    """Each SMPL npz of `models_dir` rewritten with the rest shape of its
+    betas (`v_template + shapedirs @ betas`), the `minimal_shape` the
+    ZJU-MoCap loader reads and step 4 does not write."""
+    import numpy as np
+    for name in sorted(os.listdir(models_dir)):
+        path = os.path.join(models_dir, name)
+        payload = dict(np.load(path))
+        payload['minimal_shape'] = (assets.v_template + np.einsum(
+            'vcl,l->vc', assets.shapedirs, payload['betas'][0])).astype(
+                np.float32)
+        np.savez(path, **payload)
+
+
+def build_tooling_tree(root, device, times=None):
+    """Steps 2-6 of the port's `tooling.build_dataset` on the seeded video
+    and masks: the ZJU tree `root/S1` (`1/*.jpg`, `1/*.png`,
+    `cam_params.json`, `models/*.npz` from a TOOL_FRAMES-frame CLIFF
+    motion, its translation kept (step 4's default zeroes it, and the
+    camera sits at the origin) and the rest shape added for the loader),
+    the YOLO copies `root/yolo`, and the YOLO text and recovered mask of
+    each frame under `root/txt`. Returns the recovered masks."""
+    import numpy as np
+    from gsavatar_torch.motion import streams
+    from gsavatar_torch.smpl.body_model import find_assets
+    from gsavatar_torch.tooling import build_dataset as bd
+    subj = os.path.join(root, 'S1')
+    os.makedirs(subj, exist_ok=True)
+    masks_path = os.path.join(root, 'masks.npy')
+    np.save(masks_path, tooling_masks())
+    video = streams.VideoStream
+    streams.VideoStream = StandInVideo
+    try:
+        with times or contextlib.nullcontext():
+            n = bd.extract_images_and_masks(os.path.join(root, 'video.mp4'),
+                                            masks_path, subj, device=device)
+    finally:
+        streams.VideoStream = video
+    if n != TOOL_FRAMES:
+        fail(f"extract_images_and_masks wrote {n} frames")
+    bd.generate_camera_params(TOOL_RAW[1], TOOL_RAW[0],
+                              os.path.join(subj, 'cam_params.json'))
+    motion = motion_npz(os.path.join(root, 'cliff.npz'), TOOL_FRAMES)
+    assets = find_assets(None, 'neutral')
+    bd.extract_smpl_model_data(motion, os.path.join(subj, 'models'), assets,
+                               flip_root=False, device=device)
+    add_rest_shape(os.path.join(subj, 'models'), assets)
+    bd.build_yolo_seg_dataset(os.path.join(subj, '1'),
+                              os.path.join(root, 'yolo'))
+    os.makedirs(os.path.join(root, 'txt'), exist_ok=True)
+    recovered = []
+    with times or contextlib.nullcontext():
+        for i in range(TOOL_FRAMES):
+            recovered.append(bd.mask_to_yolo_txt(
+                os.path.join(root, 'yolo', 'masks', f'{i:06d}.png'),
+                os.path.join(root, 'txt', f'{i:06d}.txt')))
+    return recovered
+
+
+def tooling_overlays():
+    """The skeleton overlay (BGR) and `cliff.process_image` (CHW and the
+    crop) of the first frame, the crop around its mask's bounding box."""
+    import numpy as np
+    from gsavatar_torch.tooling import cliff, skeleton
+    rgb = tooling_frame(0)
+    over = skeleton.draw_skeleton(np.ascontiguousarray(rgb[..., ::-1]),
+                                  tooling_keypoints(), 3, 5)
+    ys, xs = np.nonzero(tooling_masks()[0])
+    bbox = [2.0 * xs.min(), 2.0 * ys.min(), 2.0 * xs.max(), 2.0 * ys.max()]
+    norm, _, _, _, _, crop = cliff.process_image(rgb, bbox)
+    return {'skeleton overlay': over, 'process_image': norm,
+            'process_image crop': crop}
+
+
+def tooling_digests(root, recovered, overlays):
+    """The SHA-256 of each output of the build: each JPEG's bytes, each
+    PNG mask's pixels (its zlib stream is the writer's own), the camera
+    JSON's bytes, each YOLO text's bytes and recovered mask, and the
+    `overlays` arrays."""
+    from gsavatar_torch.utils import png
+    out = {}
+    subj = os.path.join(root, 'S1')
+    for i in range(TOOL_FRAMES):
+        name = f'{i:06d}'
+        with open(os.path.join(subj, '1', f'{name}.jpg'), 'rb') as f:
+            out[f'{name}.jpg'] = hashlib.sha256(f.read()).hexdigest()
+        out[f'{name}.png pixels'] = _sha(png.read_png(
+            os.path.join(subj, '1', f'{name}.png'), 'gray'))
+        with open(os.path.join(root, 'txt', f'{name}.txt'), 'rb') as f:
+            out[f'{name}.txt'] = hashlib.sha256(f.read()).hexdigest()
+        out[f'{name} recovered mask'] = _sha(recovered[i])
+    with open(os.path.join(subj, 'cam_params.json'), 'rb') as f:
+        out['cam_params.json'] = hashlib.sha256(f.read()).hexdigest()
+    for k, v in overlays.items():
+        out[k] = _sha(v)
+    return out
+
+
+def tooling_models_close(root, device):
+    """Step 4 on `device` against the same step on the CPU: every array of
+    every models/*.npz within 1e-5 (absolute and relative), the keys and
+    dtypes equal."""
+    import numpy as np
+    from gsavatar_torch.smpl.body_model import find_assets
+    from gsavatar_torch.tooling import build_dataset as bd
+    ref = os.path.join(root, 'models_cpu')
+    assets = find_assets(None, 'neutral')
+    bd.extract_smpl_model_data(os.path.join(root, 'cliff.npz'), ref, assets,
+                               flip_root=False, device='cpu')
+    add_rest_shape(ref, assets)
+    worst = 0.0
+    for i in range(TOOL_FRAMES):
+        a = np.load(os.path.join(root, 'S1', 'models', f'{i:06d}.npz'))
+        b = np.load(os.path.join(ref, f'{i:06d}.npz'))
+        if sorted(a.files) != sorted(b.files):
+            fail(f"models/{i:06d}.npz keys {a.files} against {b.files}")
+        for k in b.files:
+            if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape:
+                fail(f"models/{i:06d}.npz {k}: {a[k].dtype} {a[k].shape}")
+            d = np.abs(a[k].astype(np.float64) - b[k].astype(np.float64))
+            if not np.all(d <= 1e-5 + 1e-5 * np.abs(b[k])):
+                fail(f"models/{i:06d}.npz {k} off the CPU's by {d.max()}")
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def tooling_preload(root, gpu):
+    """`native.decode_batch` on one thread and on every CPU, and a
+    `Prefetcher` over a seeded schedule, on the tree: each frame and mask
+    equal bit for bit to `zju_format.load_image_mask`'s."""
+    import glob as globmod
+    import numpy as np
+    from gsavatar_torch import native
+    from gsavatar_torch.data import zju_format
+    subj = os.path.join(root, 'S1')
+    imgs = sorted(globmod.glob(os.path.join(subj, '1', '*.jpg')))
+    masks = sorted(globmod.glob(os.path.join(subj, '1', '*.png')))
+    with open(os.path.join(subj, 'cam_params.json')) as f:
+        cp = json.load(f)['1']
+    K = np.array(cp['K'], np.float32)
+    D = np.array(cp['D'], np.float32).ravel()
+    hw = (512, 512)          # the custom-video config's img_hw
+    want = [zju_format.load_image_mask(i, m, K, D, hw, False, device=DEVICE)
+            for i, m in zip(imgs, masks)]
+    n_cpu = os.cpu_count() or 1
+    for threads in (1, n_cpu):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_i, got_m = native.decode_batch(imgs, masks, K, D, hw, False,
+                                           n_threads=threads, device=DEVICE)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+        for j, (wi, wm) in enumerate(want):
+            if not (torch.equal(got_i[j], wi) and torch.equal(got_m[j], wm)):
+                fail(f"decode_batch ({threads} threads): frame {j} differs "
+                     f"from load_image_mask")
+        log(f"tooling preload ({gpu}): decode_batch of {len(imgs)} frames "
+            f"{TOOL_RAW[1]}x{TOOL_RAW[0]} -> {hw[1]}x{hw[0]} on {threads} "
+            f"thread(s) of os.cpu_count() = {n_cpu}: {ms:.2f} ms/frame "
+            f"(host clock, synced), bit-equal to load_image_mask")
+    order = np.random.default_rng(SEED + 97).permutation(len(imgs))
+    pf = native.Prefetcher(imgs, masks, K, D, hw, False, lookahead=4,
+                           n_threads=n_cpu, device=DEVICE)
+    try:
+        pf.set_schedule(order)
+        t0 = time.perf_counter()
+        seen = []
+        while True:
+            item = pf.next()
+            if item is None:
+                break
+            idx, im, mk = item
+            seen.append(idx)
+            if not (torch.equal(im, want[idx][0])
+                    and torch.equal(mk, want[idx][1])):
+                fail(f"Prefetcher: frame {idx} differs from load_image_mask")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    finally:
+        pf.close()
+    if seen != [int(i) for i in order]:
+        fail(f"Prefetcher gave {seen}, scheduled {order.tolist()}")
+    log(f"tooling preload ({gpu}): Prefetcher over a seeded schedule, "
+        f"{n_cpu} threads, lookahead 4: {ms:.2f} ms/frame (host clock, "
+        f"synced), bit-equal to load_image_mask")
+
+
+def tooling_training(root, counters, gpu):
+    """`train.training` with `dataset=zjumocap_001_mono` (the custom-video
+    loader) on the built tree at the bench's point count: TOOL_STEPS
+    iterations, validation at TOOL_VAL with the strips saved, a
+    torch.profiler trace over TOOL_TRACE; then K1 and K2 against their
+    plain versions on one more step's inputs. The 1920x1080 frames go to
+    the config's 512x512, so a splat is 1.78x taller than wide: the rect
+    window is 16 tiles, where 8 crops about 36 of the 50,000 initial
+    Gaussians."""
+    from gsavatar_torch import train
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.ops.rasterizer import composite as K
+    from gsavatar_torch.scene import Scene
+    from gsavatar_torch.utils import png
+    exp = os.path.join(root, 'exp')
+    trace_dir = os.path.join(root, 'trace')
+    cfg = load_config([
+        'dataset=zjumocap_001_mono', f'dataset.root_dir={root}',
+        'dataset.subject=S1', f'dataset.train_frames=[0,{TOOL_FRAMES},1]',
+        f'dataset.val_frames=[0,{TOOL_FRAMES},4]',
+        'dataset.n_points=50000', 'rasterizer.max_rect=16',
+        f'opt.iterations={TOOL_STEPS}',
+        'test_interval=0', f'test_iterations={list(TOOL_VAL)}',
+        f'max_val_frames={TOOL_VAL_FRAMES}', 'save_val_images=true',
+        f'profile_trace_dir={trace_dir}',
+        f'profile_start_iter={TOOL_TRACE[0]}',
+        f'profile_stop_iter={TOOL_TRACE[1]}', 'strict_overflow=true',
+        f'exp_dir={exp}'])
+    t0 = time.perf_counter()
+    scene = Scene(cfg, seed=SEED, device=DEVICE)
+    cams = [scene.train_dataset[i] for i in range(len(scene.train_dataset))]
+    torch.cuda.synchronize()
+    log(f"tooling tree scene ({gpu}): {len(cams)} training frames "
+        f"{tuple(cams[0].image.shape)} preloaded, "
+        f"{int(scene.init_state().gauss_aux.alive.sum())} Gaussians, "
+        f"{time.perf_counter() - t0:.2f} s")
+    with StepTimes(train, 'make_train_step') as st:
+        (scene, state, logger), launches = driven(
+            counters, lambda: train.training(cfg, scene=scene, log_every=1,
+                                             progress=False))
+    check_finite_records(logger, 'tooling tree training')
+    n_val = sum(min(n, TOOL_VAL_FRAMES) for n in (
+        len(scene.test_dataset),
+        len(range(0, len(scene.train_dataset),
+                  max(len(scene.train_dataset) // 10, 1)))))
+    want = {'composite_fwd': TOOL_STEPS + n_val * len(TOOL_VAL),
+            'composite_bwd': TOOL_STEPS,
+            'segsum': K3_PER_STEP * TOOL_STEPS, 'narrow_rows': 0}
+    losses = list(rows(logger, 'loss/total_loss').values())
+    log(f"tooling tree training ({gpu}): {TOOL_STEPS} steps, median "
+        f"{st.median():.3f} ms/step without the first (first "
+        f"{st.ms[0]:.1f}), loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+        f"launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"tooling tree launches {launches}, expected {want}")
+    strips = []
+    for it in TOOL_VAL:
+        d = os.path.join(exp, 'validation', f'iter_{it}')
+        names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        if len(names) != n_val:
+            fail(f"validation strips at {it}: {names}")
+        for name in names:
+            s = png.read_png(os.path.join(d, name))
+            h, w = cfg['dataset']['img_hw']
+            if s.shape != (h, 3 * w, 3):
+                fail(f"strip {name}: {s.shape}")
+            strips.append(name)
+    trace = os.path.join(trace_dir,
+                         f'trace_{TOOL_TRACE[0]}_{TOOL_TRACE[1]}.json')
+    if not os.path.exists(trace):
+        fail(f"no trace at {trace}")
+    with open(trace) as f:
+        text = f.read()
+    missing = [k for k, v in TRACE_NAMES.items() if v not in text]
+    if missing:
+        fail(f"the trace names no kernel of {missing}")
+    log(f"tooling tree validation: {len(strips)} strips (H, 3W, 3) at "
+        f"{list(TOOL_VAL)}; trace {os.path.basename(trace)} "
+        f"{len(text) / 2 ** 20:.1f} MiB names {sorted(TRACE_NAMES.values())}")
+    # K1 and K2 against their plain versions on one more step's inputs
+    weights = train.loss_weights(cfg, TOOL_STEPS)
+    weights['_in_densify_window'] = 1.0
+    _, _, seen = capture_kernel_inputs(scene, state, cams[0], weights,
+                                       scene.bucket_for(int(
+                                           state.gauss_aux.alive.sum())))
+    pd, ts, ct, fwd, grid_x = seen['k2'][0]
+    got = K.composite_pairs_fwd(pd, ts, grid_x)
+    k1_err = float((got - K.composite_pairs_fwd_plain(pd, ts, grid_x))
+                   .abs().max())
+    g2 = K.composite_pairs_bwd(pd, ts, ct, fwd, grid_x)
+    w2 = K.composite_pairs_bwd_plain(pd, ts, ct, fwd, grid_x)
+    scale = K.composite_pairs_bwd_scale(pd, ts, ct, fwd, grid_x)
+    k2_off = int(((g2 - w2).abs() > K2_TOL * scale).sum())
+    log(f"tooling tree kernels on {pd.shape[0]} pairs: K1 max abs err "
+        f"{k1_err:.3e} (tolerance {K1_TOL:g}), K2 {k2_off} values off "
+        f"(tolerance {K2_TOL:g} of each value's scale), max abs err "
+        f"{float((g2 - w2).abs().max()):.3e}")
+    if not k1_err <= K1_TOL or k2_off:
+        fail("the kernels disagree with their plain versions on the "
+             "tooling tree")
+
+
+def dummy_camera_phase(counters, gpu):
+    """`dummy_dataset` with `use_camera=True`: the card has no webcam and
+    no OpenCV, so the dataset serves the synthetic pose track, equal to
+    `use_camera=False`'s; one frame rendered through K1."""
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.data import load_dataset
+    from gsavatar_torch.inference import InferenceScene, init_state
+    cfg = load_config(['dataset.name=dummy_dataset', 'dataset.n_verts=512',
+                       'dataset.img_hw=[64,64]', 'dataset.n_points=768',
+                       'model.gaussian.capacity=1024'])
+    del cfg['dataset']['train_frames']
+    plain = load_dataset(dict(cfg['dataset']), 'train', device=DEVICE)
+    cam_cfg = dict(cfg['dataset'], use_camera=True)
+    live = load_dataset(cam_cfg, 'train', device=DEVICE)
+    if live._stream is not None:
+        fail("dummy_dataset opened a camera on the card's machine")
+    if len(live) != len(plain) or live.frames != list(range(
+            live.N_PREBUILT)):
+        fail(f"dummy_dataset: {len(live)} cameras, {len(plain)} without the "
+             f"camera")
+    for i in (0, len(live) // 2, len(live) - 1):
+        a, b = live[i], plain[i]
+        if not (torch.equal(a.image, b.image) and torch.equal(a.mask, b.mask)
+                and torch.equal(a.world_view_transform,
+                                b.world_view_transform)
+                and a.image_name == b.image_name):
+            fail(f"dummy_dataset use_camera=True frame {i} differs")
+    state = init_state(cfg, live, device=DEVICE)
+    scene = InferenceScene(cfg, live.metadata, live.assets, state,
+                           device=DEVICE)
+    pkg, launches = driven(counters,
+                           lambda: scene.render_frame(live[0]))
+    log(f"dummy_dataset use_camera=True ({gpu}): no camera, the "
+        f"{live.N_PREBUILT}-frame pose track ({len(live)} cameras) equal to "
+        f"use_camera=False; one frame rendered, launches {launches}")
+    if launches['composite_fwd'] != 1 or not bool(
+            pkg.render.isfinite().all()):
+        fail(f"dummy_dataset render: launches {launches}")
+
+
+def tooling_phase(counters, work, gpu):
+    """Phase 16: the custom-video tooling on the card."""
+    import numpy as np
+    with open(os.path.join(TOOL_FIXTURES, 'digests.json')) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    times = ToolTimes()
+    recovered = build_tooling_tree(work, DEVICE, times)
+    build_s = time.perf_counter() - t0
+    got = tooling_digests(work, recovered, tooling_overlays())
+    bad = sorted(k for k in want if want[k] != got.get(k))
+    log(f"tooling tree ({gpu}): {TOOL_FRAMES} frames {TOOL_RAW[1]}x"
+        f"{TOOL_RAW[0]}, masks {TOOL_MASK[1]}x{TOOL_MASK[0]}, steps 2-6 in "
+        f"{build_s:.2f} s; digests {len(want) - len(bad)} of {len(want)} "
+        f"equal to the fixture's")
+    if bad or set(got) != set(want):
+        fail(f"the tooling's outputs differ from the fixture's: {bad}")
+    for label, ms in times.ms.items():
+        per = sorted(ms)
+        log(f"tooling {label} ({gpu}): {sum(ms) / TOOL_FRAMES:.2f} ms/frame "
+            f"(median {per[len(per) // 2]:.2f} ms per call, {len(ms)} "
+            f"calls; host clock, device synced)")
+    log(f"tooling step 4 on the card against the CPU: largest difference "
+        f"{tooling_models_close(work, DEVICE):.3e}")
+    n_poly = [int(np.count_nonzero(r)) for r in recovered]
+    log(f"tooling recovered masks: {min(n_poly)}..{max(n_poly)} pixels")
+    tooling_preload(work, gpu)
+    tooling_training(work, counters, gpu)
+    dummy_camera_phase(counters, gpu)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA GPU is available")
@@ -2885,6 +3384,15 @@ def main():
                    k2_args)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # 16. the custom-video tooling; its tree, run and trace under build/
+    work = tempfile.mkdtemp(prefix='tool-', dir=kernels.BUILD)
+    t0 = time.perf_counter()
+    try:
+        tooling_phase(counters, work, gpu)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({'kernels': records}))
     log(json.dumps({'ok': True, 'device': {

@@ -356,25 +356,40 @@ def _merge(base: dict, over: dict) -> dict:
     return out
 
 
-def _interpolate(node, root: dict):
+_INTERP = re.compile(r'\$\{([^}]+)\}')
+# a YAML 1.1 reader leaves "1e-4" a string; such strings become floats
+_NUMERIC = re.compile(r'[+-]?(\d+\.?\d*|\.\d+)[eE][+-]?\d+')
+
+
+def _interpolate(node, root: dict, depth: int = 0):
     """`${a.b}` as a whole string takes the value of key a.b (a copy);
-    inside a longer string, its text."""
+    inside a longer string, its text. An exponent-only number string
+    becomes a float. References deeper than 16 raise (a cycle)."""
+    if depth > 16:
+        raise ValueError("interpolation cycle")
     if isinstance(node, dict):
-        return {k: _interpolate(v, root) for k, v in node.items()}
+        return {k: _interpolate(v, root, depth) for k, v in node.items()}
     if isinstance(node, list):
-        return [_interpolate(v, root) for v in node]
-    if isinstance(node, str) and '${' in node:
+        return [_interpolate(v, root, depth) for v in node]
+    if isinstance(node, str):
         def value(path):
             cur = root
             for part in path.split('.'):
                 cur = cur[part]
-            return _interpolate(cur, root)
-        m = re.fullmatch(r'\$\{([^}]+)\}', node)
+            return _interpolate(cur, root, depth + 1)
+        m = _INTERP.fullmatch(node)
         if m:
             return copy.deepcopy(value(m.group(1)))
-        return re.sub(r'\$\{([^}]+)\}', lambda mm: str(value(mm.group(1))),
-                      node)
+        if _NUMERIC.fullmatch(node):
+            return float(node)
+        return _INTERP.sub(lambda mm: str(value(mm.group(1))), node)
     return node
+
+
+def load_config_from_dict(data: dict) -> dict:
+    """`data` with its `${...}` references resolved, on a deep copy: the
+    dict itself is left as it is."""
+    return _interpolate(copy.deepcopy(data), data)
 
 
 def load_config(overrides: Optional[Iterable[str]] = None) -> dict:

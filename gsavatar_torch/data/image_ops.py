@@ -18,7 +18,10 @@ compute the same integers with PyTorch on the frame's device:
   by default for float linear resizes: the source coordinate
   `(d + 0.5) * src / dst - 0.5` in float64, its fraction t as float32,
   replicated edges, and `fma(b - a, t, a)` in float32 along x, then along
-  y (exact: float64 products, rounded to odd, then to float32).
+  y (exact: float64 products, rounded to odd, then to float32); on three
+  channels, IPP's replicated-edge columns that fall in a last run of 5 or
+  more (of each side's, taken 16 at a time) round the vertical step of
+  channels 0 and 1 unfused.
 - `resize_nearest`: `floor(x * src / dst)` in float64.
 - `resize_lanczos4`: the 8x8 Lanczos kernel with 11-bit coefficients.
 
@@ -185,6 +188,19 @@ def _ipp_linear_taps(src: int, dst: int):
     return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), t
 
 
+def _ipp_border_tail(src: int, dst: int) -> np.ndarray:
+    """The output columns whose source column is clamped (left of 0 or
+    right of src - 1) and that fall in the last run, of 5 or more, when
+    each side's clamped columns are taken 16 at a time."""
+    f = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    out = []
+    for side in (np.nonzero(f < 0)[0], np.nonzero(f >= src - 1)[0]):
+        tail = side[16 * (len(side) // 16):]
+        if len(tail) >= 5:
+            out.extend(tail.tolist())
+    return np.asarray(out, np.int64)
+
+
 def _resize_linear_float(img: torch.Tensor, hw) -> torch.Tensor:
     h, w = hw
     H, W = img.shape[:2]
@@ -199,7 +215,18 @@ def _resize_linear_float(img: torch.Tensor, hw) -> torch.Tensor:
     a, b = img[:, x0], img[:, x1]
     rows = _fma32(b - a, tx.view((1, w) + extra).expand_as(a), a)
     a, b = rows[y0], rows[y1]
-    return _fma32(b - a, ty.view((h, 1) + extra).expand_as(a), a)
+    out = _fma32(b - a, ty.view((h, 1) + extra).expand_as(a), a)
+    if img.dim() == 3 and img.shape[2] == 3:
+        # IPP's three-channel border: where the source column is clamped
+        # (replicated edge), each side's columns go in runs of 16; a last
+        # run of 5 or more rounds the vertical step of channels 0 and 1
+        # as a product and a sum, not as one fma
+        cols = _ipp_border_tail(W, w)
+        if len(cols):
+            c = torch.as_tensor(cols, device=dev)
+            a, b = a[:, c, :2], b[:, c, :2]
+            out[:, c, :2] = (b - a) * ty.view(h, 1, 1) + a
+    return out
 
 
 def resize_linear(img: torch.Tensor, hw) -> torch.Tensor:
@@ -265,6 +292,7 @@ def _lanczos4_coeffs(x: float) -> np.ndarray:
     return (coeffs * np.float32(1.0 / total)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
 def _lanczos4_taps(src: int, dst: int):
     scale = 1.0 / (dst / src)
     idx = np.zeros((dst, 8), np.int64)

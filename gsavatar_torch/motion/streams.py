@@ -128,12 +128,20 @@ class ChArucoStream:
             yield frame, self.detect(frame)
 
 
-def save_video_from_frames(frames, path: str, fps: float = 30.0):
-    """An MP4 (mp4v) of RGB uint8 frames (utils/io_utils.py:4-16)."""
+def save_video_from_frames(frames, path: str, fps: float = 30.0) -> int:
+    """An MP4 (mp4v) of RGB uint8 frames, a sequence or any iterable, at
+    the first frame's size (utils/io_utils.py:4-16); returns the number of
+    frames written. No frame, no file."""
     cv2 = import_cv2('save_video_from_frames')
-    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
-    h, w = frames[0].shape[:2]
-    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'mp4v'), fps, (w, h))
+    vw, n = None, 0
     for f in frames:
+        if vw is None:
+            os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+            h, w = f.shape[:2]
+            vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'mp4v'), fps,
+                                 (w, h))
         vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
-    vw.release()
+        n += 1
+    if vw is not None:
+        vw.release()
+    return n

@@ -47,7 +47,11 @@ shape. The port's pair arrays are sized by their count, so it runs at the
 config's `max_pairs` / `max_rect` ceilings and keeps only the alarm: the
 pair overflow and `rect_dropped` counts (summed over a batch's frames) are
 host integers in every step, so it checks them every iteration, and
-`strict_overflow` raises."""
+`strict_overflow` raises. `save_val_images` writes each validation
+frame's GT | render | 5x|error| strip as a PNG (`save_strip`);
+`profile_trace_dir` takes a `torch.profiler` trace of iterations
+[`profile_start_iter` (10), `profile_stop_iter` (start + 3)) on rank 0
+(`TraceWindow`), where the JAX driver takes a `jax.profiler` trace."""
 from __future__ import annotations
 
 import contextlib
@@ -71,7 +75,7 @@ from gsavatar_torch.ops.ssim import ssim
 from gsavatar_torch.parallel.context import sharding_scope
 from gsavatar_torch.renderer import render
 from gsavatar_torch.scene import Scene
-from gsavatar_torch.utils import ply
+from gsavatar_torch.utils import ply, png
 from gsavatar_torch.utils.logging import MetricLogger
 from gsavatar_torch.utils.transforms import draw_view_angles
 
@@ -439,16 +443,29 @@ def host_metrics(metrics: dict) -> dict:
             for k, v in metrics.items()}
 
 
+@torch.no_grad()
+def save_strip(img, camera, path: str) -> None:
+    """The evidence strip GT | render | 5 x |error| of a validation frame
+    (each clipped to [0, 1], times 255 and truncated) as an (H, 3W, 3)
+    8-bit PNG at `path`."""
+    gt = torch.clamp(camera.image, 0.0, 1.0)
+    err = torch.clamp(5.0 * torch.abs(img - gt), 0.0, 1.0)
+    strip = torch.cat([gt, img, err], dim=1)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    png.write_png(path, (strip * 255).to(torch.uint8).cpu().numpy())
+
+
 def make_validation(scene):
     """validation(state, iteration, logger, exp_dir=None,
-    max_val_frames=None, bucket=0, quiet=False) -> results: renders the test
-    split and
+    max_val_frames=None, bucket=0, quiet=False, save_images=False) ->
+    results: renders the test split and
     every (len/10)-th training frame at eval, and reports per split the
     means of l1, PSNR, SSIM and LPIPS (f32, keyed by its weight source),
     the opacity histogram of the alive slots and their count. A frame
     whose pairs overflow or whose rects are clamped raises the overflow
     alarm as a training step does. `quiet` (a rank other than 0) prints
-    nothing."""
+    and writes nothing. `save_images` writes each frame's `save_strip` to
+    `<exp_dir>/validation/iter_<n>/<split>_<image name>.png`."""
     key = lpips_mod.metric_key()
 
     @torch.no_grad()
@@ -464,10 +481,11 @@ def make_validation(scene):
         gt = torch.clamp(camera.image, 0.0, 1.0)
         out = {'l1_loss': L.l1_loss(img, gt), 'psnr': L.psnr(img, gt),
                'ssim': ssim(img, gt), key: lpips_mod.lpips(img, gt)}
-        return out, pkg
+        return out, pkg, img
 
     def validation(state, iteration: int, logger, exp_dir=None,
-                   max_val_frames=None, bucket: int = 0, quiet: bool = False):
+                   max_val_frames=None, bucket: int = 0, quiet: bool = False,
+                   save_images: bool = False):
         deg = scene.active_sh_degree(iteration)
         n_train = len(scene.train_dataset)
         splits = {'test': list(range(len(scene.test_dataset))),
@@ -480,9 +498,13 @@ def make_validation(scene):
             for i in idxs:
                 camera = scene.device_camera(
                     i, 'train' if name == 'train' else 'test')
-                m, pkg = render_and_score(state, camera, deg, bucket)
+                m, pkg, img = render_and_score(state, camera, deg, bucket)
                 overflow_alarm(scene.cfg, iteration, pkg.pair_overflow,
                                pkg.rect_dropped, quiet=quiet)
+                if save_images and exp_dir and not quiet:
+                    save_strip(img, camera, os.path.join(
+                        exp_dir, 'validation', f'iter_{iteration}',
+                        f'{name}_{camera.image_name}.png'))
                 for k, v in host_metrics(m).items():
                     acc.setdefault(k, []).append(v)
             for k, v in acc.items():
@@ -644,10 +666,19 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
             data_stack = list(range(len(scene.train_dataset)))
         return data_stack.pop(int(rng.integers(len(data_stack))))
 
+    # `profile_trace_dir`: a torch.profiler trace of iterations
+    # [profile_start_iter, profile_stop_iter), written by rank 0
+    trace_dir = cfg.get('profile_trace_dir') if lead else None
+    trace_start = int(cfg.get('profile_start_iter', 10))
+    trace_stop = int(cfg.get('profile_stop_iter', trace_start + 3))
+    trace = TraceWindow(trace_dir, trace_start, trace_stop, scene.device)
+    save_val_images = bool(cfg.get('save_val_images', False))
+
     scope = sharding_scope(mesh) if use_mesh else contextlib.nullcontext()
     t0 = time.time()
     with scope:
         for iteration in range(first_iteration, iterations + 1):
+            trace.at(iteration)
             weights = loss_weights(cfg, iteration)
             in_window, do_densify, do_reset, use_ss = schedule_flags(
                 iteration, **flags)
@@ -670,7 +701,7 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
                     or iteration in test_iterations:
                 validation(state, iteration, logger, exp_dir,
                            max_val_frames=max_val_frames, bucket=bucket,
-                           quiet=not lead)
+                           quiet=not lead, save_images=save_val_images)
                 t0 = time.time()   # validation is not iteration time
 
             if do_densify:
@@ -713,8 +744,43 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
                     state.gauss_params, state.gauss_aux)
             if lead and iteration in checkpoint_iterations:
                 scene.save_checkpoint(state, iteration, exp_dir)
+    trace.at(trace_stop)
 
     return scene, state, logger
+
+
+class TraceWindow:
+    """A `torch.profiler` trace (CPU, and CUDA on a GPU) from iteration
+    `start` up to `stop`: `at(iteration)` starts it at `start` and, at
+    `stop`, synchronizes the device (the last step's kernels finish inside
+    the trace, as the JAX driver blocks on the positions) and writes
+    `<trace_dir>/trace_<start>_<stop>.json`, a Chrome trace. A run that
+    ends inside the window writes it then. No `trace_dir`, no trace."""
+
+    def __init__(self, trace_dir, start: int, stop: int, device):
+        self.trace_dir, self.start, self.stop = trace_dir, start, stop
+        self.device = torch.device(device)
+        self.prof = None
+        self.path = None
+
+    def at(self, iteration: int) -> None:
+        if not self.trace_dir:
+            return
+        if self.prof is None and iteration == self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif self.prof is not None and iteration >= self.stop:
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            self.prof.stop()
+            os.makedirs(self.trace_dir, exist_ok=True)
+            self.path = os.path.join(self.trace_dir,
+                                     f'trace_{self.start}_{self.stop}.json')
+            self.prof.export_chrome_trace(self.path)
+            self.prof = None
 
 
 def ranks_of(cfg: dict) -> int:

@@ -10,9 +10,11 @@ alpha channel dropped, and colour through libpng's truncating
 and B. `read_png(path, 'color')` gives RGB (grey repeated in the three
 channels), as `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` does.
 
-Rows filtered with None, Sub or Up are undone with array operations;
-Average and Paeth, which depend on the pixel to the left, take a Python
-loop over the row's pixels and are slow on large images."""
+Rows filtered with None or Sub are undone all at once, and each run of Up
+rows as one running sum down the columns (array operations that release
+the GIL on large images); Average and Paeth, which depend on the pixel
+to the left, take a Python loop over the row's pixels and are slow on
+large images."""
 from __future__ import annotations
 
 import struct
@@ -68,34 +70,49 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     if raw.size < h * (stride + 1):
         raise ValueError("truncated image data")
     raw = raw[:h * (stride + 1)].reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        f, line = raw[y, 0], raw[y, 1:]
-        if f == 0:
-            row = line.copy()
-        elif f == 1:      # Sub: a running sum of each channel, mod 256
-            row = np.cumsum(line.reshape(-1, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif f == 2:      # Up
-            row = line + prior
-        elif f in (3, 4):
-            row = line.astype(np.int32)
-            up = prior.astype(np.int32)
-            for x in range(0, stride, bpp):
-                left = row[x - bpp:x] if x else np.zeros(bpp, np.int32)
-                b = up[x:x + bpp]
-                if f == 3:
-                    pred = (left + b) >> 1
-                else:
-                    ul = up[x - bpp:x] if x else np.zeros(bpp, np.int32)
-                    pred = _paeth(left, b, ul)
-                row[x:x + bpp] = (row[x:x + bpp] + pred) & 255
-            row = row.astype(np.uint8)
-        else:
-            raise ValueError(f"bad PNG filter type {f}")
-        out[y] = row
-        prior = row
+    filt, lines = raw[:, 0], raw[:, 1:]
+    bad = filt[filt > 4]
+    if bad.size:
+        raise ValueError(f"bad PNG filter type {bad[0]}")
+    out = np.empty((h, stride), np.uint8)
+    # None and Sub rows need no other row: all of them at once
+    none, sub = filt == 0, filt == 1
+    out[none] = lines[none]
+    n = int(sub.sum())
+    if n:
+        out[sub] = np.cumsum(lines[sub].reshape(n, -1, bpp), axis=1,
+                             dtype=np.uint8).reshape(n, stride)
+    # the rows that add the row above, in order: a run of Up rows is a
+    # running sum down the columns, mod 256
+    y = 0
+    zero = np.zeros(stride, np.uint8)
+    while y < h:
+        f = filt[y]
+        if f < 2:
+            y += 1
+            continue
+        prior = out[y - 1] if y else zero
+        if f == 2:
+            end = y + 1
+            while end < h and filt[end] == 2:
+                end += 1
+            out[y:end] = np.cumsum(lines[y:end], axis=0, dtype=np.uint8) \
+                + prior
+            y = end
+            continue
+        row = lines[y].astype(np.int32)
+        up = prior.astype(np.int32)
+        for x in range(0, stride, bpp):
+            left = row[x - bpp:x] if x else np.zeros(bpp, np.int32)
+            b = up[x:x + bpp]
+            if f == 3:
+                pred = (left + b) >> 1
+            else:
+                ul = up[x - bpp:x] if x else np.zeros(bpp, np.int32)
+                pred = _paeth(left, b, ul)
+            row[x:x + bpp] = (row[x:x + bpp] + pred) & 255
+        out[y] = row.astype(np.uint8)
+        y += 1
     return out
 
 

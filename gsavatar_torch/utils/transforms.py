@@ -54,6 +54,43 @@ def quat_multiply(r, s):
     ], dim=-1)
 
 
+def rotmat_to_quat(R, eps: float = 1e-8):
+    """(..., 3, 3) -> (..., 4) wxyz: Shepperd's four candidates, each
+    divided by its square root clamped at the dtype's `tiny`, the branch
+    picked by `torch.where` (trace > 0, else the largest diagonal)."""
+    m = R.reshape(R.shape[:-2] + (9,))
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = m.unbind(-1)
+    trace = m00 + m11 + m22
+    tiny = torch.finfo(R.dtype).tiny
+
+    def safe_div(a, b):
+        return a / torch.clamp(b, min=tiny)
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x + eps, min=0.0)) * 2.0
+
+    sq_t = root(trace + 1.0)
+    cand_t = torch.stack([0.25 * sq_t, safe_div(m21 - m12, sq_t),
+                          safe_div(m02 - m20, sq_t),
+                          safe_div(m10 - m01, sq_t)], -1)
+    sq_x = root(1.0 + m00 - m11 - m22)
+    cand_x = torch.stack([safe_div(m21 - m12, sq_x), 0.25 * sq_x,
+                          safe_div(m01 + m10, sq_x),
+                          safe_div(m02 + m20, sq_x)], -1)
+    sq_y = root(1.0 + m11 - m00 - m22)
+    cand_y = torch.stack([safe_div(m02 - m20, sq_y),
+                          safe_div(m01 + m10, sq_y), 0.25 * sq_y,
+                          safe_div(m12 + m21, sq_y)], -1)
+    sq_z = root(1.0 + m22 - m00 - m11)
+    cand_z = torch.stack([safe_div(m10 - m01, sq_z),
+                          safe_div(m02 + m20, sq_z),
+                          safe_div(m12 + m21, sq_z), 0.25 * sq_z], -1)
+    where_2 = torch.where((m11 > m22)[..., None], cand_y, cand_z)
+    where_1 = torch.where(((m00 > m11) & (m00 > m22))[..., None], cand_x,
+                          where_2)
+    return torch.where((trace > 0.0)[..., None], cand_t, where_1)
+
+
 def build_scaling_rotation(s, r):
     """L = R @ diag(s). `r` is (N, 4) quaternions or (N, 3, 3) matrices."""
     R = quat_to_rotmat(r) if (r.ndim == 2 and r.shape[-1] == 4) else r
@@ -64,6 +101,14 @@ def strip_symmetric(S):
     """(N, 3, 3) symmetric -> (N, 6) [xx, xy, xz, yy, yz, zz]."""
     return torch.stack([S[..., 0, 0], S[..., 0, 1], S[..., 0, 2],
                         S[..., 1, 1], S[..., 1, 2], S[..., 2, 2]], dim=-1)
+
+
+def unstrip_symmetric(u):
+    """(N, 6) [xx, xy, xz, yy, yz, zz] -> (N, 3, 3) symmetric."""
+    xx, xy, xz, yy, yz, zz = u.unbind(-1)
+    return torch.stack([torch.stack([xx, xy, xz], -1),
+                        torch.stack([xy, yy, yz], -1),
+                        torch.stack([xz, yz, zz], -1)], dim=-2)
 
 
 def covariance_from_scaling_rotation(scaling, scaling_modifier, rotation):

@@ -24,7 +24,12 @@ Tolerances, and why:
   statistics differ in f32 rounding and an element near the gradient,
   scale or opacity threshold may fall on the other side;
 * validation: l1, SSIM and LPIPS 1e-4 relative, PSNR 1e-3 dB, each
-  histogram bin +-1, the point count equal;
+  histogram bin +-1, the point count equal; the saved GT | render |
+  5x|error| strips (`save_val_images`; the port writes them with its own
+  PNG writer, the JAX driver with Pillow) decoded: the GT panels equal,
+  the renders within one grey level, the error panels (5x the render's
+  difference) within five;
+* the port's `profile_trace_dir` trace of iterations [3, 5) is written;
 * the metrics.jsonl keys equal, but for the JAX driver's compile events
   (`compile/*`: the port compiles no step variants);
 * a checkpoint loads back bit for bit, and a resumed run continues at the
@@ -80,7 +85,9 @@ DRIVER = [f"opt.iterations={ITERATIONS}", "opt.densify_from_iter=3",
           "opt.percent_dense=0.005", "opt.opacity_threshold=0.08",
           "test_interval=0", "test_iterations=[2]", "max_val_frames=1",
           "opt.bucket_granularity=0", "checkpoint_iterations=[]",
-          "save_iterations=[]"]
+          "save_iterations=[]", "save_val_images=true"]
+# the port's run also writes a torch.profiler trace of iterations [3, 5)
+TRACE = (3, 5)
 
 
 def _np(tree):
@@ -96,7 +103,9 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp('driver')
     jcfg = j_load_config(overrides=JAX_ONLY + TINY + DRIVER
                          + [f"exp_dir={tmp / 'jax'}"])
-    tcfg = t_load_config(TINY + DRIVER + [f"exp_dir={tmp / 'torch'}"])
+    tcfg = t_load_config(TINY + DRIVER + [
+        f"exp_dir={tmp / 'torch'}", f"profile_trace_dir={tmp / 'trace'}",
+        f"profile_start_iter={TRACE[0]}", f"profile_stop_iter={TRACE[1]}"])
     js = JScene(jcfg, seed=0)
     j0 = _np(js.init_state())
     ts = TScene(tcfg, seed=0, device='cpu')
@@ -390,3 +399,53 @@ def test_predict_scores_a_port_checkpoint(runs, tmp_path):
     cfg = t_load_config(TINY + DRIVER + ["mode=predict", f"load_ckpt={path}",
                                          f"exp_dir={tmp_path / 'p'}"])
     assert set(t_predict(cfg, device='cpu')) == {'time_ms'}
+
+
+def test_validation_strips_match_jax(runs):
+    from gsavatar_torch.utils import png
+    jdir = runs['tmp'] / 'jax' / 'validation' / 'iter_2'
+    tdir = runs['tmp'] / 'torch' / 'validation' / 'iter_2'
+    names = sorted(p.name for p in jdir.iterdir())
+    assert names == sorted(p.name for p in tdir.iterdir())
+    assert len(names) == 2                 # test_ and train_, one frame each
+    for name in names:
+        want = png.read_png(str(jdir / name)).astype(np.int32)
+        got = png.read_png(str(tdir / name)).astype(np.int32)
+        assert got.shape == want.shape == (64, 3 * 64, 3)
+        # the ground-truth panel is the same frame in both; the renders
+        # within one grey level; the error panel is 5x the render's
+        # difference, so within 5
+        np.testing.assert_array_equal(got[:, :64], want[:, :64])
+        assert np.abs(got[:, 64:128] - want[:, 64:128]).max() <= 1, name
+        assert np.abs(got[:, 128:] - want[:, 128:]).max() <= 5, name
+
+
+def test_profile_trace_is_written(runs):
+    trace = runs['tmp'] / 'trace' / f'trace_{TRACE[0]}_{TRACE[1]}.json'
+    events = json.loads(trace.read_text())['traceEvents']
+    names = {e.get('name', '') for e in events}
+    # the traced iterations' steps: the compositor and the segment sums
+    assert any('aten::' in n for n in names)
+    assert len(events) > 100
+
+
+def test_trace_window_starts_and_stops(tmp_path):
+    """`TraceWindow` starts at its first iteration, writes at its last
+    (exclusive), once; a run that ends inside the window writes it then;
+    without a directory it does nothing."""
+    w = ttrain.TraceWindow(str(tmp_path / 'a'), 2, 4, 'cpu')
+    for it in range(1, 7):
+        w.at(it)
+        torch.ones(8).sum()
+        assert (w.prof is not None) == (2 <= it < 4)
+    assert w.path == str(tmp_path / 'a' / 'trace_2_4.json')
+    assert Path(w.path).exists()
+    w = ttrain.TraceWindow(str(tmp_path / 'b'), 5, 9, 'cpu')
+    for it in range(1, 7):
+        w.at(it)
+    w.at(9)                                   # the run's end
+    assert Path(tmp_path / 'b' / 'trace_5_9.json').exists()
+    w = ttrain.TraceWindow(None, 1, 3, 'cpu')
+    for it in range(1, 5):
+        w.at(it)
+    assert w.path is None and not list(tmp_path.glob('c*'))

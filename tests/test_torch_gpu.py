@@ -30,7 +30,10 @@ two single runs on the card bit for bit, since every operation of the
 step is deterministic there (cuDNN held to deterministic algorithms; K2
 and K3 give the same bits on every launch). K1 and K2 over one model
 rank's tile range (`tile_base`): the same tolerances on the range, and
-the ranges put together equal to the whole launch bit for bit."""
+the ranges put together equal to the whole launch bit for bit. The
+tooling: chip_smoke.py phase 16's tree built on the card gives the
+committed digests; the threaded preload (`native.decode_batch`,
+`Prefetcher`) equals the one-frame path on the card bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -743,3 +746,64 @@ def test_two_subjects_on_the_card_equal_their_single_runs(cuda, tmp_path):
         for part in ('gauss_params', 'gauss_aux'):
             for k, v in vars(getattr(state, part)).items():
                 assert torch.equal(getattr(getattr(ms_state, part), k), v), k
+
+
+def test_tooling_tree_on_the_card_gives_the_fixture_digests(cuda, tmp_path):
+    """chip_smoke.py phase 16's tree built on the card (the mask's Lanczos
+    resize and step 4's LBS there, the rest on the host): every digest of
+    tests/fixtures/torch_tooling/digests.json, which the CPU tests hold
+    to OpenCV's and the JAX package's output."""
+    import json
+    import os
+    import chip_smoke
+    with open(os.path.join(chip_smoke.TOOL_FIXTURES, 'digests.json')) as f:
+        want = json.load(f)
+    recovered = chip_smoke.build_tooling_tree(str(tmp_path), cuda)
+    got = chip_smoke.tooling_digests(str(tmp_path), recovered,
+                                     chip_smoke.tooling_overlays())
+    assert got == want
+
+
+@pytest.mark.parametrize('lanczos', [False, True], ids=['linear', 'lanczos'])
+def test_decode_batch_on_the_card_equals_the_one_frame_path(cuda, tmp_path,
+                                                            lanczos):
+    """`native.decode_batch` (one thread and four) and a `Prefetcher` on the
+    card: each frame and mask equal bit for bit to
+    `zju_format.load_image_mask` on the card."""
+    from gsavatar_torch import native
+    from gsavatar_torch.data import zju_format
+    from gsavatar_torch.utils import png
+    rng = np.random.default_rng(7)
+    K = np.array([[110.0, 0, 48], [0, 112.0, 47], [0, 0, 1]], np.float32)
+    D = np.array([-0.2, 0.15, 1e-3, -8e-4, -0.03], np.float32)
+    imgs, masks = [], []
+    yy, xx = np.mgrid[:96, :96]
+    for i in range(5):
+        img = np.clip(128 + 60 * np.sin(xx / 7 + i)[..., None]
+                      + rng.normal(0, 5, (96, 96, 3)), 0, 255).astype(np.uint8)
+        m = ((((xx - 48 - i) / 20) ** 2 + ((yy - 48) / 30) ** 2) < 1)
+        imgs.append(str(tmp_path / f'{i}.jpg'))
+        masks.append(str(tmp_path / f'{i}.png'))
+        native.write_jpeg(imgs[-1], img)
+        png.write_png(masks[-1], m.astype(np.uint8) * 255)
+    want = [zju_format.load_image_mask(a, b, K, D, (48, 48), False, lanczos,
+                                       device=cuda)
+            for a, b in zip(imgs, masks)]
+    for threads in (1, 4):
+        got_i, got_m = native.decode_batch(imgs, masks, K, D, (48, 48), False,
+                                           lanczos, n_threads=threads,
+                                           device=cuda)
+        for j, (wi, wm) in enumerate(want):
+            assert torch.equal(got_i[j], wi) and torch.equal(got_m[j], wm)
+    pf = native.Prefetcher(imgs, masks, K, D, (48, 48), False, lanczos,
+                           n_threads=2, device=cuda)
+    try:
+        pf.set_schedule([3, 0, 4, 1, 2])
+        for want_idx in (3, 0, 4, 1, 2):
+            idx, img, mask = pf.next()
+            assert idx == want_idx
+            assert torch.equal(img, want[idx][0])
+            assert torch.equal(mask, want[idx][1])
+        assert pf.next() is None
+    finally:
+        pf.close()

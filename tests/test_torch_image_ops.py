@@ -9,8 +9,9 @@ bilinear path (1024 -> 64, 1024 -> 300), nearest and Lanczos4; the frames
 as float32 after /255 are equal too. The float32 resize the serving apps
 take (`cv2.resize` of a render and its alpha) is bit-equal to
 `cv2.resize` on float32 with OpenCV's default (Intel IPP) path: 2x up, 2x
-down, ratios that are not integers, odd sizes, 1 and 3 channels, and
-values outside [0, 1]."""
+down, ratios that are not integers, odd sizes, upscales by 8-64x (the
+CLIFF crops of the tooling), 1 and 3 channels, and values outside
+[0, 1]."""
 import cv2
 import numpy as np
 import pytest
@@ -81,7 +82,11 @@ def test_resize_bit_equal(raw, out):
 FLOAT_CASES = {'up2': (64, 64, 128, 128), 'down2': (128, 128, 64, 64),
                'odd_up': (37, 53, 100, 77), 'odd_down': (51, 33, 20, 17),
                'bench_up2': (540, 540, 1080, 1080), 'up_1_5': (64, 64, 96, 96),
-               'same': (20, 30, 20, 30)}
+               'same': (20, 30, 20, 30),
+               # upscales by 8-64x: IPP's three-channel replicated-edge
+               # columns, 5-15 a side after the runs of 16, and 16 or 32
+               'up_12x': (20, 15, 256, 192), 'up_25x': (12, 9, 256, 192),
+               'up_64x': (4, 3, 256, 192), 'up_edge_run': (50, 7, 98, 329)}
 
 
 @pytest.mark.parametrize('channels', [0, 1, 3], ids=['hw', 'hw1', 'hw3'])

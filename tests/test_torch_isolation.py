@@ -1,7 +1,8 @@
 """The port stands alone: gsavatar_torch and chip_smoke.py import nothing of
-JAX or of the JAX package, nor Pillow, and OpenCV only inside the functions
-of the wrappers of its video I/O and ArUco detection (`motion/streams.py`,
-which the card's machine cannot run: it has neither package), no module
+JAX or of the JAX package, nor Pillow, matplotlib only inside a function,
+and OpenCV only inside the functions of the wrappers of its video I/O and
+ArUco detection (`motion/streams.py`, which the card's machine cannot run:
+it has neither package); the tooling imports without any of them; no module
 builds or imports a GPU toolchain at
 import time, the entry points refuse to run without a GPU unless the
 caller asks for the CPU, and a kernel library's name follows every source
@@ -50,11 +51,42 @@ def _imports(path: Path):
 @pytest.mark.parametrize('path', PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_reference_imports(path):
+    """No import of JAX, the JAX package, OpenCV (but inside the
+    functions of the wrappers) or Pillow; matplotlib only inside a
+    function."""
     rel = str(path.relative_to(ROOT))
     bad = [m for m, in_function in _imports(path)
-           if m.split('.')[0] in FORBIDDEN
-           and not (m == 'cv2' and in_function and rel in CV2_WRAPPERS)]
+           if (m.split('.')[0] in FORBIDDEN
+               and not (m == 'cv2' and in_function and rel in CV2_WRAPPERS))
+           or (m.split('.')[0] == 'matplotlib' and not in_function)]
     assert not bad, f"{rel} imports {bad}"
+
+
+# the tooling's modules, which must import without OpenCV, Pillow or
+# matplotlib (the card's machine has none of them)
+TOOLING = ('gsavatar_torch.tooling', 'gsavatar_torch.tooling.build_dataset',
+           'gsavatar_torch.tooling.cliff', 'gsavatar_torch.tooling.skeleton',
+           'gsavatar_torch.utils.draw', 'gsavatar_torch.utils.contours',
+           'gsavatar_torch.smpl.tools', 'gsavatar_torch.native')
+
+
+def test_tooling_imports_without_opencv_pillow_or_matplotlib():
+    """In a fresh interpreter where `import cv2`, `import PIL` and `import
+    matplotlib` fail, the tooling's modules import, and none of the three
+    is loaded."""
+    code = (
+        "import json, sys\n"
+        "for m in ('cv2', 'PIL', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {TOOLING!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0]"
+        " in ('cv2', 'PIL', 'matplotlib') and sys.modules[k] is not None)))\n")
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_import_pulls_in_no_jax_triton_or_build():

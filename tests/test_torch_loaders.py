@@ -22,6 +22,7 @@ tests/test_torch_render.py."""
 import json
 import pickle
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -382,15 +383,82 @@ def test_every_dataset_group_loads_like_jax(group, zju_root, ps_root,
     assert_same_cameras([jds[0]], [tds[0]])
 
 
-def test_dummy_dataset_is_the_synthetic_track():
-    cfg = t_load_config(['dataset.name=dummy_dataset', 'dataset.n_verts=256',
-                         'dataset.img_hw=[32,32]'])
-    del cfg['dataset']['train_frames']
-    ds = t_load_dataset(cfg['dataset'], 'train')
-    assert ds.frames == list(range(570))
-    cfg['dataset']['use_camera'] = True
-    with pytest.raises(NotImplementedError, match='item 15'):
-        t_load_dataset(cfg['dataset'], 'train')
+DUMMY = ['dataset.name=dummy_dataset', 'dataset.n_verts=256',
+         'dataset.img_hw=[32,32]']
+
+
+def _dummy_pair(use_camera):
+    """The JAX and the port's dummy dataset (the 570-frame track, no
+    train_frames given), both with `use_camera`."""
+    jcfg = j_load_config(overrides=['dataset=synthetic'] + DUMMY)
+    tcfg = t_load_config(DUMMY)
+    jd, td = jcfg.dataset.to_dict(), tcfg['dataset']
+    del jd['train_frames'], td['train_frames']
+    jd['use_camera'] = td['use_camera'] = use_camera
+    from gsavatar.config.config import Config
+    return (j_load_dataset(Config(jd), 'train'),
+            t_load_dataset(td, 'train', device='cpu'))
+
+
+def _same_fields(j, t):
+    for f in ('world_view_transform', 'full_proj_transform',
+              'camera_center', 'rots', 'Jtrs', 'bone_transforms'):
+        close(getattr(t, f), getattr(j, f), TOL, TOL, f)
+    assert (t.frame_id, t.cam_id, t.image_name, t.width, t.height) == \
+        (j.frame_id, j.cam_id, j.image_name, j.width, j.height)
+
+
+def test_dummy_dataset_is_the_synthetic_track(monkeypatch):
+    """Without a camera (no OpenCV here: `CameraStream` cannot be made),
+    `use_camera=True` serves the 570-frame pose track (seen by the two
+    training views): the same cameras and ground truth as
+    `use_camera=False`, and the JAX dataset's cameras. (The ground truth
+    itself is the synthetic dataset's: the JAX package renders it with a
+    per-tile pair cap the port does not have, so the pixels are not
+    compared here.)"""
+    monkeypatch.setitem(sys.modules, 'cv2', None)
+    jds, tds = _dummy_pair(True)
+    assert tds._stream is None and jds._stream is None
+    plain = t_load_dataset(dict(tds.cfg, use_camera=False), 'train',
+                           device='cpu')
+    assert tds.frames == plain.frames == list(range(570))
+    assert len(tds) == len(jds) == len(plain) == 570 * 2     # two views
+    for i in (0, 301, 1139):
+        t, p, j = tds[i], plain[i], jds[i]
+        assert torch.equal(t.image, p.image) and torch.equal(t.mask, p.mask)
+        _same_fields(j, t)
+
+
+class SeededStream:
+    """A webcam stand-in: seeded uint8 RGB frames, larger than the camera's
+    size, a new one each time it is iterated."""
+
+    def __init__(self):
+        self.rng = np.random.default_rng(21)
+
+    def __iter__(self):
+        while True:
+            yield self.rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)
+
+
+def test_dummy_dataset_takes_webcam_frames_as_jax(monkeypatch):
+    """A fake stream in both packages' `CameraStream`: each camera's image
+    is the stream's frame / 255 cropped to the camera's size, equal to
+    the JAX dataset's bit for bit, taken once per record (preload); the
+    mask and the other fields stay the synthetic track's."""
+    import gsavatar.motion.streams as jstreams
+    import gsavatar_torch.motion.streams as tstreams
+    monkeypatch.setattr(jstreams, 'CameraStream', SeededStream)
+    monkeypatch.setattr(tstreams, 'CameraStream', SeededStream)
+    jds, tds = _dummy_pair(True)
+    assert isinstance(tds._stream, SeededStream)
+    for i in (0, 7, 300):
+        j, t = jds[i], tds[i]
+        assert tuple(t.image.shape) == (32, 32, 3)
+        np.testing.assert_array_equal(to_np(t.image), np.asarray(j.image))
+        _same_fields(j, t)
+        assert t.mask is not None and tuple(t.mask.shape) == (32, 32)
+        assert tds[i] is t                      # kept, as JAX's preload
 
 
 def test_scene_on_the_zju_tree_renders_like_jax(zju_root):

@@ -296,3 +296,73 @@ def test_config_groups_take_only_the_default():
         tconfig.load_config(["dataset=zjumocap_999_mono"])
     assert tconfig.load_config(["texture=shallow_mlp"]) == \
         tconfig.load_config()
+
+
+def _near_half_turns():
+    """Rotations by 179.9-180 degrees about axes near x, y and z (each
+    fires one of the non-trace branches of Shepperd's method), about a
+    tilted axis, and by small angles (the trace branch)."""
+    from scipy.spatial.transform import Rotation
+    axes = np.array([[1, 0.01, -0.02], [0.02, 1, 0.01], [-0.01, 0.02, 1],
+                     [1, 1, 0.3], [0.2, -1, 1]], np.float64)
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    rots = [axes * np.deg2rad(a) for a in (180.0, 179.99, 179.9, 120.0, 1.0)]
+    return Rotation.from_rotvec(np.concatenate(rots)).as_matrix().astype(
+        np.float32)
+
+
+def test_rotmat_to_quat_matches_jax():
+    """On test_math_core.py's inputs (128 unit quaternions made matrices
+    by JAX's quat_to_rotmat) and on near-half-turn matrices where each
+    branch of the selection fires: within 1e-6 absolute."""
+    q = np.random.default_rng(3).normal(size=(128, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    mats = np.asarray(JT.quat_to_rotmat(jnp.asarray(q)))
+    for m in (mats, _near_half_turns()):
+        m = np.ascontiguousarray(m, np.float32)
+        want = np.asarray(JT.rotmat_to_quat(jnp.asarray(m)))
+        got = TT.rotmat_to_quat(torch.tensor(m)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # every branch fired on the second set
+    m = _near_half_turns()
+    d = np.stack([m[:, 0, 0], m[:, 1, 1], m[:, 2, 2]], 1)
+    trace = d.sum(1)
+    assert (trace > 0).any()
+    assert {int(np.argmax(r)) for r, t in zip(d, trace) if t <= 0} == \
+        {0, 1, 2}
+
+
+def test_unstrip_symmetric_matches_jax():
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(8, 3, 3))
+    S = (A @ np.transpose(A, (0, 2, 1))).astype(np.float32)
+    u = np.asarray(JT.strip_symmetric(jnp.asarray(S)))
+    want = np.asarray(JT.unstrip_symmetric(jnp.asarray(u)))
+    got = TT.unstrip_symmetric(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, S, rtol=0, atol=1e-6)
+
+
+def test_load_config_from_dict_matches_jax():
+    """`${...}` resolved whole (keeping the referee's type) and inside
+    strings, nested references, YAML 1.1's exponent strings made floats,
+    on a deep copy (the given dict unchanged); a cycle raises as JAX's
+    does."""
+    import copy
+    from gsavatar.config.config import load_config_from_dict as j_from_dict
+    data = {'a': {'b': 3, 'c': [1, '${a.b}'], 'lr': '1e-4',
+                  'tag': 'run_${a.b}_${name}'},
+            'name': 'x${a.b}', 'ref': '${a}', 'views': '${a.c}',
+            'deep': {'d': '${a.tag}'}}
+    before = copy.deepcopy(data)
+    got = tconfig.load_config_from_dict(data)
+    assert got == j_from_dict(data).to_dict()
+    assert data == before
+    assert got['a']['lr'] == 1e-4 and got['ref']['c'] == [1, 3]
+    got['ref']['c'].append(0)
+    assert got['a']['c'] == [1, 3]
+    loop = {'x': '${y}', 'y': '${x}'}
+    with pytest.raises(ValueError, match='cycle'):
+        tconfig.load_config_from_dict(loop)
+    with pytest.raises(ValueError, match='cycle'):
+        j_from_dict(loop)

@@ -104,3 +104,41 @@ def test_sixteen_bit_and_interlaced_raise(tmp_path):
         png.decode_png(_with_ihdr(data, 8, 1))
     with pytest.raises(ValueError, match='CRC'):
         png.decode_png(data[:20] + bytes([data[20] ^ 0xFF]) + data[21:])
+
+
+def _unfilter_by_rows(data, h, stride, bpp):
+    """PNG's five row filters undone one row at a time, as the format
+    defines them: the reference for `png._unfilter`'s array form."""
+    raw = np.frombuffer(data, np.uint8).reshape(h, stride + 1).astype(int)
+    out = np.zeros((h, stride), int)
+    for y in range(h):
+        f, line = raw[y, 0], raw[y, 1:]
+        up = out[y - 1] if y else np.zeros(stride, int)
+        for x in range(stride):
+            a = out[y, x - bpp] if x >= bpp else 0
+            c = up[x - bpp] if x >= bpp else 0
+            b = up[x]
+            if f == 4:
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            else:
+                pred = (0, a, b, (a + b) >> 1)[f]
+            out[y, x] = (line[x] + pred) & 255
+    return out.astype(np.uint8)
+
+
+@pytest.mark.parametrize('bpp', [1, 3, 4])
+def test_unfilter_matches_the_row_by_row_reference(bpp):
+    """Seeded filter bytes: runs of each filter type, mixed rows, and
+    images of one filter type only."""
+    rng = np.random.default_rng(bpp)
+    for t in range(40):
+        h, w = int(rng.integers(1, 24)), int(rng.integers(1, 16))
+        stride = w * bpp
+        raw = rng.integers(0, 256, (h, stride + 1), dtype=np.uint8)
+        raw[:, 0] = (np.full(h, t % 5) if t < 5 else
+                     np.repeat(rng.integers(0, 5, h // 3 + 1), 3)[:h])
+        data = raw.tobytes()
+        np.testing.assert_array_equal(png._unfilter(data, h, stride, bpp),
+                                      _unfilter_by_rows(data, h, stride, bpp))

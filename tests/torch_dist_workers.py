@@ -136,6 +136,43 @@ def train_run(rank, world, out, overrides):
                os.path.join(out, f'rank{rank}.pt'))
 
 
+def sharded_steps(rank, world, out, inputs):
+    """Steps of `shard.make_sharded_train_step` over a world x 1 mesh from
+    a given state: `inputs` holds the state's tensors and step counts, the
+    converter's weights, the frames' ground truth, and per step the
+    iteration, loss weights, position learning rate and every frame's
+    draws. Saves the state's tensors after each step and the metrics."""
+    from gsavatar_torch.config import load_config
+    from gsavatar_torch.parallel import shard
+    from gsavatar_torch.parallel.context import sharding_scope
+    from gsavatar_torch.parallel.mesh import make_mesh
+    from gsavatar_torch.scene import Scene
+    from gsavatar_torch.train import TrainDraws, host_metrics
+    x = torch.load(inputs)
+    scene = Scene(load_config(STEP_TINY), seed=0, device='cpu')
+    state = scene.init_state()
+    scene.converter.load_state_dict(x['converter'])
+    live = shard.state_tensors(state)
+    with torch.no_grad():
+        for k, v in x['state'].items():
+            live[k].copy_(v)
+    state.gauss_adam.step, state.conv_opt.count = x['counts']
+    cams = [scene.train_dataset[i].replace(image=img, mask=mask)
+            for i, (img, mask) in enumerate(x['frames'])]
+    mesh = make_mesh(world, data=world, model=1)
+    states, metrics = [], []
+    with sharding_scope(mesh):
+        step = shard.make_sharded_train_step(scene, mesh)
+        for it, weights, xyz_lr, draws in x['steps']:
+            state, m = step(state, shard.put_batch(cams, mesh), it, weights,
+                            xyz_lr, bucket=x['bucket'],
+                            draws=[TrainDraws(**d) for d in draws])
+            metrics.append(host_metrics(m))
+            states.append(state_dict(state))
+    torch.save({'states': states, 'metrics': metrics},
+               os.path.join(out, f'rank{rank}.pt'))
+
+
 def subjects_run(rank, world, out, overrides):
     """The multi-subject driver on the CPU; saves this rank's subjects'
     states by global index, and rank 0's logged rows."""
