@@ -1,0 +1,6 @@
+"""The share of the traced frames' wall time in which no operation ran on
+the device, in %."""
+
+
+def read(tr):
+    return tr.idle_share()
