@@ -27,6 +27,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from gsavatar_torch import tracing
 from gsavatar_torch.device import synchronize
 from gsavatar_torch.utils import png
 
@@ -41,7 +42,7 @@ def composite_over_original(img: np.ndarray, original: np.ndarray,
 def to_uint8(img: torch.Tensor) -> np.ndarray:
     """An image in [0, 1] as the uint8 frame the JAX package saves:
     (img * 255) truncated."""
-    return (img * 255).to(torch.uint8).cpu().numpy()
+    return tracing.device_read((img * 255).to(torch.uint8)).numpy()
 
 
 def evaluate(scene, cameras: Sequence, n_frames: Optional[int] = None,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from gsavatar_torch import tracing
 from gsavatar_torch.ops import knn
 from gsavatar_torch.ops.segsum import gather_rows
 
@@ -110,7 +111,7 @@ def foreground_crop(render, gt, mask, crop_hw):
     cx = (mask.sum(0) * xs).sum() / total
     y0 = torch.clamp(torch.round(cy).to(torch.int32) - ch // 2, 0, h - ch)
     x0 = torch.clamp(torch.round(cx).to(torch.int32) - cw // 2, 0, w - cw)
-    y0, x0 = torch.stack([y0, x0]).tolist()
+    y0, x0 = tracing.device_read(torch.stack([y0, x0])).tolist()
     return (render[y0:y0 + ch, x0:x0 + cw], gt[y0:y0 + ch, x0:x0 + cw])
 
 

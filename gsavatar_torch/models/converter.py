@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from gsavatar_torch import tracing
 from gsavatar_torch.core.gaussians import Gaussians
 from gsavatar_torch.utils.transforms import augm_rot_matrix
 from .non_rigid import HashGridNonRigid, get_non_rigid
@@ -37,7 +38,8 @@ class GaussianConverter(nn.Module):
     def forward(self, gaussians: Gaussians, camera, iteration: int,
                 nr_cache=None, train: bool = False, draws=None):
         loss_reg = {}
-        camera, loss_pose = self.pose_correction(camera, iteration)
+        with tracing.span('converter/pose_correction'):
+            camera, loss_pose = self.pose_correction(camera, iteration)
         loss_reg.update(loss_pose)
 
         view_noise_rot = None
@@ -49,13 +51,16 @@ class GaussianConverter(nn.Module):
             if self.view_noise > 0:
                 view_noise_rot = augm_rot_matrix(*draws.view_angles).T
 
-        deformed, loss_nr = self.non_rigid(gaussians, camera, iteration,
-                                           camera.latent_idx,
-                                           nr_cache=nr_cache)
+        with tracing.span('converter/non_rigid'):
+            deformed, loss_nr = self.non_rigid(gaussians, camera, iteration,
+                                               camera.latent_idx,
+                                               nr_cache=nr_cache)
         loss_reg.update(loss_nr)
-        deformed = self.rigid(deformed, camera, iteration)
-        colors = self.texture(deformed, camera, camera.latent_idx,
-                              view_noise_rot=view_noise_rot)
+        with tracing.span('converter/rigid'):
+            deformed = self.rigid(deformed, camera, iteration)
+        with tracing.span('converter/texture'):
+            colors = self.texture(deformed, camera, camera.latent_idx,
+                                  view_noise_rot=view_noise_rot)
         return deformed, loss_reg, colors
 
     def skinning_loss(self, pts_norm, gt_weights):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gsavatar_torch import tracing
 from gsavatar_torch.ops.segsum import segment_sum_leveled
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -54,7 +55,8 @@ class _HashGather(torch.autograd.Function):
     def backward(ctx, ct):
         idx, = ctx.saved_tensors
         L, T, F = ctx.table_shape
-        d = segment_sum_leveled(ct, idx, T)
+        with tracing.span('backward/segsum'):
+            d = segment_sum_leveled(ct, idx, T)
         return d.reshape(L, T, F), None
 
 

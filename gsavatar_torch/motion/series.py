@@ -22,6 +22,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from gsavatar_torch import tracing
 from gsavatar_torch.data import base as data_base
 from gsavatar_torch.device import resolve_device
 from gsavatar_torch.smpl import lbs as smpl_lbs
@@ -105,10 +106,11 @@ class MotionSeries:
             torch.as_tensor(betas, device=dev)[None],
             torch.as_tensor(pose, device=dev)[None], v_template, shapedirs,
             posedirs, J_regressor, parents, weights)
+        read = tracing.device_read
         return SMPLParameters(
             root_orient=pose[:3], pose_body=pose[3:66], pose_hand=pose[66:72],
-            trans=trans, betas=betas, bone_transforms=A[0].cpu().numpy(),
-            verts=verts[0].cpu().numpy(), joints=J_posed[0].cpu().numpy())
+            trans=trans, betas=betas, bone_transforms=read(A[0]).numpy(),
+            verts=read(verts[0]).numpy(), joints=read(J_posed[0]).numpy())
 
     def camera_pose_fields(self, idx: int, metadata: dict,
                            params: Optional[SMPLParameters] = None):
@@ -116,12 +118,14 @@ class MotionSeries:
         of frame `idx` for a camera, with the subject's canonical metadata
         (motion_series.py:225-269). `params`, when given, are frame idx's
         parsed parameters, and the frame is not parsed again."""
-        p = self.parse(idx) if params is None else params
-        rots = data_base.pose_to_rots(p.root_orient, p.pose_body, p.pose_hand)
-        Jtr_norm = data_base.normalize_Jtr(metadata['Jtr'],
-                                           metadata['minimal_shape'])
-        bt = data_base.compose_bone_transforms(
-            p.bone_transforms, metadata['bone_transforms_02v'], p.trans)
+        with tracing.span('motion/pose'):
+            p = self.parse(idx) if params is None else params
+            rots = data_base.pose_to_rots(p.root_orient, p.pose_body,
+                                          p.pose_hand)
+            Jtr_norm = data_base.normalize_Jtr(metadata['Jtr'],
+                                               metadata['minimal_shape'])
+            bt = data_base.compose_bone_transforms(
+                p.bone_transforms, metadata['bone_transforms_02v'], p.trans)
         return rots[None], Jtr_norm[None], bt
 
     def __iter__(self) -> Iterator[SMPLParameters]:

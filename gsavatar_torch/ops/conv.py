@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
+from gsavatar_torch import tracing
+
 
 @contextlib.contextmanager
 def _f32_deterministic():
@@ -43,7 +45,7 @@ class _Conv2dF32(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         stride, padding, groups, has_bias = ctx.conf
         need = ctx.needs_input_grad
-        with _f32_deterministic():
+        with tracing.span('backward/conv'), _f32_deterministic():
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 grad, x, weight, [weight.shape[0]] if has_bias else None,
                 list(stride), list(padding), [1, 1], False, [0, 0], groups,

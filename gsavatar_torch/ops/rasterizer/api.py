@@ -15,8 +15,8 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
+from gsavatar_torch import tracing
 from gsavatar_torch.parallel.context import active_mesh
 
 from . import composite as _composite
@@ -70,7 +70,7 @@ def rasterize(means3d, colors, opacities, cov3d, *, viewmatrix,
     (N, 6) upper-triangular world covariance; matrices in the row-vector
     convention (Camera fields); background (3,); active (N,) arena mask;
     means2d_offset (N, 2) zeros, the hook for screen-space gradients."""
-    with record_function('rasterize/project'):
+    with tracing.span('rasterize/project'):
         proj = _project.project(
             means3d, cov3d, viewmatrix, full_projmatrix, tanfovx, tanfovy,
             config.width, config.height, active=active,
@@ -79,11 +79,11 @@ def rasterize(means3d, colors, opacities, cov3d, *, viewmatrix,
         side = torch.maximum(proj.rect_max[:, 0] - proj.rect_min[:, 0],
                              proj.rect_max[:, 1] - proj.rect_min[:, 1])
         max_side = torch.where(vis, side, 0).max()
-    with record_function('rasterize/pairs'):
+    with tracing.span('rasterize/pairs'):
         pa = _pairs.build_pairs(proj, colors, opacities, config.grid_x,
                                 config.grid_y, config.max_pairs,
                                 max_rect=config.max_rect)
-    with record_function('rasterize/composite'):
+    with tracing.span('rasterize/composite'):
         # under a mesh with more than one `model` rank each rank
         # composites its tile range (`api.py:147-158` of the JAX package)
         num_tiles = config.grid_x * config.grid_y
@@ -100,7 +100,7 @@ def rasterize(means3d, colors, opacities, cov3d, *, viewmatrix,
         return _untile(raw[:, rows, :].transpose(1, 2), config.grid_x,
                        config.grid_y, config.width, config.height)
 
-    with record_function('rasterize/untile'):
+    with tracing.span('rasterize/untile'):
         final_T = untile(slice(4, 5))
         image = untile(slice(0, 3)) + final_T * background[None, None, :]
         alpha = untile(slice(3, 4))[..., 0]

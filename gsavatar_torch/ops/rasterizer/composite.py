@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from gsavatar_torch import tracing
 from .pairs import PAIR_COLS
 from .project import TILE
 
@@ -326,8 +327,9 @@ class CompositePairs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         pair_data, tile_start, out = ctx.saved_tensors
-        grad = composite_pairs_bwd(pair_data, tile_start, ct.contiguous(),
-                                   out, ctx.grid_x)
+        with tracing.span('backward/composite'):
+            grad = composite_pairs_bwd(pair_data, tile_start,
+                                       ct.contiguous(), out, ctx.grid_x)
         return grad, None, None
 
 
@@ -360,11 +362,12 @@ class CompositePairsSharded(torch.autograd.Function):
     def backward(ctx, ct):
         pair_data, tile_start, out = ctx.saved_tensors
         base, per = ctx.range
-        grad = composite_pairs_bwd(
-            pair_data, tile_start[base:base + per + 1],
-            ct[base:base + per].contiguous(), out[base:base + per],
-            ctx.grid_x, base)
-        ctx.mesh.all_reduce(grad, 'model')
+        with tracing.span('backward/composite'):
+            grad = composite_pairs_bwd(
+                pair_data, tile_start[base:base + per + 1],
+                ct[base:base + per].contiguous(), out[base:base + per],
+                ctx.grid_x, base)
+            ctx.mesh.all_reduce(grad, 'model')
         return grad, None, None, None
 
 

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from gsavatar_torch import tracing
 from gsavatar_torch.ops.segsum import gather_rows
 from .project import Projection
 
@@ -79,8 +80,8 @@ def build_pairs(proj: Projection, colors, opacities, grid_x: int, grid_y: int,
     sorted_key, order = torch.sort(key, stable=False)
     # one host read, queued behind the sort, for the pair count and both
     # counters
-    total, rect_dropped = (int(v) for v in torch.stack(
-        [total, rect_dropped]).tolist())
+    total, rect_dropped = (int(v) for v in tracing.device_read(
+        torch.stack([total, rect_dropped])).tolist())
     n_pairs = min(total, max_pairs)
     sorted_key = sorted_key[:n_pairs]
     pair_gauss = torch.div(order[:n_pairs], max_rect * max_rect,

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from gsavatar_torch import tracing
 from .segsum_blocked import segment_sum_sorted_blocked
 
 
@@ -59,7 +60,8 @@ class GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         idx, = ctx.saved_tensors
-        return segment_sum(ct, idx, ctx.num_rows), None
+        with tracing.span('backward/segsum'):
+            return segment_sum(ct, idx, ctx.num_rows), None
 
 
 def gather_rows(src, idx):

@@ -7,13 +7,14 @@ Renders the synthetic avatar at the bench shape (`config.BENCH_OVERRIDES`,
 seeded weights) through `InferenceScene.render_frame` or, with `--train`,
 takes training steps of the same avatar through `Scene` and
 `train.make_train_step` (bench.py's loss weights and learning rate at
-iteration 1000): a few to warm up, then `torch.profiler` over `--frames`
-of them. Prints the wall time per frame or step (host clock, ended by a
-device sync), the device's busy time per frame or step (the sum of its
-kernel and copy times), the idle share, each stage span's host and device
-time (`render/converter`, `rasterize/*`, and `train/*` for the losses,
-the backward pass and the updates), and the kernels that take the most
-device time. `--trace` also writes the Chrome trace. Needs a CUDA GPU."""
+iteration 1000): a few to warm up, then `--frames` of them, each a
+`tracing.unit`, with the tracer on under `torch.profiler`. Prints per
+frame or step the wall time (host clock, ended by a device sync), the
+device's busy time (the union of its operations' intervals) and idle
+share, the tracer's `summary()` (each span's total and self host ms and
+calls) and counters (`sync/reads`, `sync/wait_ms`), and the kernels that
+take the most device time. `--trace` also writes the Chrome trace. Needs
+a CUDA GPU."""
 from __future__ import annotations
 
 import argparse
@@ -24,17 +25,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from gsavatar_torch import tracing
 from gsavatar_torch.config import BENCH_OVERRIDES, load_config
 from gsavatar_torch.device import resolve_device
 from gsavatar_torch.inference import synthetic_scene
 
 WARMUP = 3
 TRAIN_ITERATION = 1000   # bench.py's loss weights and learning rate
-SPANS = ('render/', 'rasterize/', 'train/')
-
-
-def _us(event) -> float:
-    return event.time_range.end - event.time_range.start
 
 
 def _render_frames(seed, dev):
@@ -74,62 +71,62 @@ def main(argv=None):
         run(i)
     torch.cuda.synchronize()
 
+    unit = 'step' if args.train else 'frame'
+    tracing.enable()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(args.frames):
-            run(WARMUP + i)
+            with tracing.unit(i, unit):
+                run(WARMUP + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+    tracing.disable()
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
     n = args.frames
-    events = prof.events()
-    # the device's own events: kernels, copies and fills; the spans appear
-    # twice, on the host and as annotations on the device's timeline
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith(SPANS)]
+    spans = {k: {m: x / n for m, x in v.items()}
+             for k, v in tracing.summary().items()}
+    counters = {}
+    for (_, name), value in tracing.counters().items():
+        counters[name] = counters.get(name, 0.0) + value / n
+    # the device's own operations: kernels, copies and fills, without the
+    # spans' annotations on the device's timeline
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)
+              and e.name not in spans]
     if not device:
         raise SystemExit("the profiler recorded no device activity")
-    busy_ms = sum(_us(e) for e in device) / 1e3 / n
-    spans = {}
-    for e in events:
-        if not e.name.startswith(SPANS):
-            continue
-        rec = spans.setdefault(e.name, {'host_ms': 0.0, 'device_ms': 0.0})
-        if e.device_type == DeviceType.CUDA:
-            # device time of the work inside the span's device interval
-            t0, t1 = e.time_range.start, e.time_range.end
-            inside = sum(_us(k) for k in device if t0 <= k.time_range.start
-                         and k.time_range.end <= t1)
-            rec['device_ms'] += inside / 1e3 / n
-        else:
-            rec['host_ms'] += _us(e) / 1e3 / n
+    # their union: kernels that programmatic dependent launch overlaps count
+    # once
+    busy_us, end = 0.0, float('-inf')
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        busy_us += max(e.time_range.end - max(e.time_range.start, end), 0.0)
+        end = max(end, e.time_range.end)
+    busy_ms = busy_us / 1e3 / n
     by_name = {}
     for e in device:
         ms, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + _us(e) / 1e3 / n, count + 1)
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / n,
+                           count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    unit = 'step' if args.train else 'frame'
     print(f"{n} {unit}s: wall {wall_ms:.3f} ms/{unit}, device busy "
           f"{busy_ms:.3f} ms/{unit}, idle share "
           f"{1.0 - busy_ms / wall_ms:.3f}, {len(device) / n:.0f} device "
           f"operations per {unit}")
-    for k, v in spans.items():
-        print(f"span {k}: host {v['host_ms']:.3f} ms, device "
-              f"{v['device_ms']:.3f} ms per {unit}")
-    # autograd's device thread launches the backward pass's kernels, which
-    # no span of the main thread records on the device
-    outside = busy_ms - sum(v['device_ms'] for v in spans.values())
-    print(f"device ms outside the spans: {outside:.3f} per {unit}")
+    for k, v in sorted(spans.items(), key=lambda kv: -kv[1]['total_ms']):
+        print(f"span {k}: {v['total_ms']:.3f} ms, self {v['self_ms']:.3f} "
+              f"ms, {v['calls']:g} calls per {unit}")
+    for k, v in counters.items():
+        print(f"counter {k}: {v:.3f} per {unit}")
     for name, (ms, count) in top:
         print(f"  {ms:8.3f} ms x{count / n:5.0f}  {name[:100]}")
     print(json.dumps({'unit': unit, 'wall_ms': wall_ms,
                       'device_busy_ms': busy_ms,
                       'idle_share': 1.0 - busy_ms / wall_ms,
                       'device_ops_per_frame': len(device) / n,
-                      'spans': spans, 'device_ms_outside_spans': outside,
+                      'spans': spans, 'counters': counters,
                       'device': torch.cuda.get_device_name(0)}))
 
 

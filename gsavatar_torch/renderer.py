@@ -5,16 +5,16 @@ colours the canonical Gaussians (at `train=True` with the step's random
 draws), then the rasterizer draws them with precomputed colours and
 covariances. One rasterizer pass gives both the colour image and the
 opacity image; `means2d_offset` is the screen-space gradient hook. The
-stages carry `record_function` spans (`render/converter` here,
-`rasterize/*` in the rasterizer) that `python -m
-gsavatar_torch.profile_render` reads."""
+stages carry `tracing` spans (`render/converter` here, `converter/*` in
+the converter, `rasterize/*` in the rasterizer) that `python -m
+gsavatar_torch.profile_render` prints."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
+from gsavatar_torch import tracing
 from gsavatar_torch.core.gaussians import Gaussians
 from gsavatar_torch.ops.rasterizer import RasterizeConfig, rasterize
 
@@ -38,7 +38,7 @@ def render(converter, gaussians: Gaussians, camera, iteration: int,
            raster_config: RasterizeConfig, background, *,
            nr_cache=None, train: bool = False, draws=None,
            means2d_offset=None) -> RenderPackage:
-    with record_function('render/converter'):
+    with tracing.span('render/converter'):
         deformed, loss_reg, colors = converter(gaussians, camera, iteration,
                                                nr_cache=nr_cache,
                                                train=train, draws=draws)

@@ -51,20 +51,22 @@ host integers in every step, so it checks them every iteration, and
 frame's GT | render | 5x|error| strip as a PNG (`save_strip`);
 `profile_trace_dir` takes a `torch.profiler` trace of iterations
 [`profile_start_iter` (10), `profile_stop_iter` (start + 3)) on rank 0
-(`TraceWindow`), where the JAX driver takes a `jax.profiler` trace."""
+(`TraceWindow`), where the JAX driver takes a `jax.profiler` trace, with
+the tracer's summary beside it. Each iteration is one `tracing.unit`."""
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gsavatar_torch import losses as L
+from gsavatar_torch import tracing
 from gsavatar_torch.core import gaussians as G
 from gsavatar_torch.core.densify import (add_stats_prefix, densify_and_prune,
                                          reset_opacity)
@@ -161,7 +163,7 @@ def make_loss_fn(scene):
                      scene.background, train=True, draws=draws,
                      means2d_offset=means2d_offset)
         gt, gt_mask = camera.image, camera.mask
-        with record_function('train/losses'):
+        with tracing.span('train/losses'):
             loss_l1 = L.l1_loss(pkg.render, gt)
             loss_dssim = 1.0 - ssim(pkg.render, gt)
             loss_mask = L.mask_loss(pkg.opacity_render, gt_mask, mask_kind)
@@ -212,7 +214,8 @@ def make_loss_fn(scene):
             'overflow/tile': 0,
             'overflow/rect': pkg.rect_dropped,
             'raster/n_pairs': pkg.n_pairs,
-            'raster/max_rect_side': int(pkg.max_rect_side),
+            'raster/max_rect_side': int(
+                tracing.device_read(pkg.max_rect_side)),
         })
         return loss, metrics, pkg.radii
 
@@ -257,7 +260,7 @@ def make_batch_grad_fn(scene):
                       'gauss': {f: getattr(params_b, f) for f in FIELDS},
                       'means2d': dict(enumerate(means2d))}
             leaves = [x for g in groups.values() for x in g.values()]
-            with record_function('train/backward'):
+            with tracing.span('train/backward'):
                 flat = iter(torch.autograd.grad(loss, leaves,
                                                 allow_unused=True))
         finally:
@@ -330,33 +333,37 @@ def make_batch_step_core(scene, exchange=None):
             draws[index * n:(index + 1) * n], active_sh_degree, bucket, r_cfg,
             frames)
         if exchange is not None:
-            with record_function('train/exchange'):
+            with tracing.span('train/exchange'):
                 loss, metrics, radii, grads = exchange(metrics, radii, grads)
-        with torch.no_grad(), record_function('train/update'):
-            state.conv_opt = scene.conv_tx.step(
-                state.conv_params, grads['conv'], state.conv_opt,
-                frozen_grads=grads['subject'])
+        with torch.no_grad(), tracing.span('train/update'):
+            with tracing.span('update/converter'):
+                state.conv_opt = scene.conv_tx.step(
+                    state.conv_params, grads['conv'], state.conv_opt,
+                    frozen_grads=grads['subject'])
 
-            lrs = dict(scene.gauss_lrs(0), xyz=xyz_lr)
-            head = lambda p: p.map(lambda x: x[:bucket])
-            params_b, adam = adam_step(
-                head(state.gauss_params), grads['gauss'],
-                ArenaAdamState(m=head(state.gauss_adam.m),
-                               v=head(state.gauss_adam.v),
-                               step=state.gauss_adam.step),
-                lrs, state.gauss_aux.alive[:bucket],
-                apply=iteration >= scene.gauss_delay)
-            for f in FIELDS:
-                for full, new in ((state.gauss_params, params_b),
-                                  (state.gauss_adam.m, adam.m),
-                                  (state.gauss_adam.v, adam.v)):
-                    getattr(full, f)[:bucket] = getattr(new, f)
-            state.gauss_adam.step = adam.step
+            with tracing.span('update/arena'):
+                lrs = dict(scene.gauss_lrs(0), xyz=xyz_lr)
+                head = lambda p: p.map(lambda x: x[:bucket])
+                params_b, adam = adam_step(
+                    head(state.gauss_params), grads['gauss'],
+                    ArenaAdamState(m=head(state.gauss_adam.m),
+                                   v=head(state.gauss_adam.v),
+                                   step=state.gauss_adam.step),
+                    lrs, state.gauss_aux.alive[:bucket],
+                    apply=iteration >= scene.gauss_delay)
+                for f in FIELDS:
+                    for full, new in ((state.gauss_params, params_b),
+                                      (state.gauss_adam.m, adam.m),
+                                      (state.gauss_adam.v, adam.v)):
+                        getattr(full, f)[:bucket] = getattr(new, f)
+                state.gauss_adam.step = adam.step
 
             if weights.get('_in_densify_window', 0.0) > 0:
-                for g, r in zip(grads['means2d'], radii):
-                    state.gauss_aux = add_stats_prefix(
-                        state.gauss_aux, g * frames if frames > 1 else g, r)
+                with tracing.span('update/stats'):
+                    for g, r in zip(grads['means2d'], radii):
+                        state.gauss_aux = add_stats_prefix(
+                            state.gauss_aux, g * frames if frames > 1 else g,
+                            r)
         return state, loss, metrics
 
     return core
@@ -403,13 +410,14 @@ def densify_step(scene, state, eps1, eps2, use_screen_size_prune: bool):
     """Densify and prune the arena (`core/densify.py`) with the config's
     thresholds; returns (state, info), info's counts still on the device."""
     opt = scene.cfg['opt']
-    params, aux, adam, info = densify_and_prune(
-        state.gauss_params, state.gauss_aux, state.gauss_adam, eps1, eps2,
-        grad_threshold=float(opt['densify_grad_threshold']),
-        min_opacity=float(opt['opacity_threshold']),
-        extent=scene.cameras_extent,
-        percent_dense=float(opt['percent_dense']),
-        use_screen_size_prune=bool(use_screen_size_prune))
+    with tracing.span('densify/round'):
+        params, aux, adam, info = densify_and_prune(
+            state.gauss_params, state.gauss_aux, state.gauss_adam, eps1,
+            eps2, grad_threshold=float(opt['densify_grad_threshold']),
+            min_opacity=float(opt['opacity_threshold']),
+            extent=scene.cameras_extent,
+            percent_dense=float(opt['percent_dense']),
+            use_screen_size_prune=bool(use_screen_size_prune))
     state.gauss_params, state.gauss_aux, state.gauss_adam = params, aux, adam
     return state, info
 
@@ -426,9 +434,10 @@ def refresh_knn(state, bucket: int):
     """Recompute the cached AIAP neighbours over the alive prefix
     `[:bucket]`, dead slots never a neighbour (after every densify and
     every resume)."""
-    state.gauss_aux.nn_ix[:bucket] = knn_self(
-        state.gauss_params.xyz[:bucket], G.K_NEIGHBORS,
-        mask=state.gauss_aux.alive[:bucket])
+    with tracing.span('densify/knn'):
+        state.gauss_aux.nn_ix[:bucket] = knn_self(
+            state.gauss_params.xyz[:bucket], G.K_NEIGHBORS,
+            mask=state.gauss_aux.alive[:bucket])
     return state
 
 
@@ -436,8 +445,8 @@ def host_metrics(metrics: dict) -> dict:
     """Every value of `metrics` as a Python float, with one device read for
     all its tensors."""
     keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
-    vals = dict(zip(keys, torch.stack([
-        metrics[k].detach().double().reshape(()) for k in keys]).tolist()
+    vals = dict(zip(keys, tracing.device_read(torch.stack([
+        metrics[k].detach().double().reshape(()) for k in keys])).tolist()
         if keys else []))
     return {k: vals[k] if k in vals else float(v)
             for k, v in metrics.items()}
@@ -679,71 +688,76 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
     with scope:
         for iteration in range(first_iteration, iterations + 1):
             trace.at(iteration)
-            weights = loss_weights(cfg, iteration)
-            in_window, do_densify, do_reset, use_ss = schedule_flags(
-                iteration, **flags)
-            weights['_in_densify_window'] = 1.0 if in_window else 0.0
-            xyz_lr = float(scene.xyz_lr_fn(iteration))
-            deg = scene.active_sh_degree(iteration)
-            idxs = [next_frame_idx() for _ in range(batch_frames)]
-            if use_mesh:
-                cameras = [scene.device_camera(i, 'train')
-                           for i in shard.put_batch(idxs, mesh)]
-            else:
-                cameras = scene.device_camera(idxs[0], 'train')
-            state, metrics = step(state, cameras, iteration, weights, xyz_lr,
-                                  active_sh_degree=deg, bucket=bucket)
+            with tracing.unit(iteration, 'train/step'):
+                weights = loss_weights(cfg, iteration)
+                in_window, do_densify, do_reset, use_ss = schedule_flags(
+                    iteration, **flags)
+                weights['_in_densify_window'] = 1.0 if in_window else 0.0
+                xyz_lr = float(scene.xyz_lr_fn(iteration))
+                deg = scene.active_sh_degree(iteration)
+                idxs = [next_frame_idx() for _ in range(batch_frames)]
+                if use_mesh:
+                    cameras = [scene.device_camera(i, 'train')
+                               for i in shard.put_batch(idxs, mesh)]
+                else:
+                    cameras = scene.device_camera(idxs[0], 'train')
+                state, metrics = step(state, cameras, iteration, weights,
+                                      xyz_lr, active_sh_degree=deg,
+                                      bucket=bucket)
 
-            # validation before densify and the reset, as the JAX driver
-            # does; on every rank (the compositor's ranges), logged by
-            # rank 0
-            if (test_interval > 0 and iteration % test_interval == 0) \
-                    or iteration in test_iterations:
-                validation(state, iteration, logger, exp_dir,
-                           max_val_frames=max_val_frames, bucket=bucket,
-                           quiet=not lead, save_images=save_val_images)
-                t0 = time.time()   # validation is not iteration time
+                # validation before densify and the reset, as the JAX driver
+                # does; on every rank (the compositor's ranges), logged by
+                # rank 0
+                if (test_interval > 0 and iteration % test_interval == 0) \
+                        or iteration in test_iterations:
+                    validation(state, iteration, logger, exp_dir,
+                               max_val_frames=max_val_frames, bucket=bucket,
+                               quiet=not lead, save_images=save_val_images)
+                    t0 = time.time()   # validation is not iteration time
 
-            if do_densify:
-                eps1, eps2 = densify_draws(state, iteration)
-                state, dinfo = densify_step(scene, state, eps1, eps2, use_ss)
-                dinfo = dict(zip(dinfo, torch.stack(list(dinfo.values()))
-                                 .tolist()))        # the densify's one read
-                if logger:
-                    logger.log(iteration, {f'densify/{k}': int(v)
-                                           for k, v in dinfo.items()})
-                bucket = scene.bucket_for(int(dinfo['n_alive']))
-                refresh_knn(state, bucket)
+                if do_densify:
+                    eps1, eps2 = densify_draws(state, iteration)
+                    state, dinfo = densify_step(scene, state, eps1, eps2,
+                                                use_ss)
+                    dinfo = dict(zip(dinfo, tracing.device_read(torch.stack(
+                        list(dinfo.values()))).tolist()))  # the densify's read
+                    if logger:
+                        logger.log(iteration, {f'densify/{k}': int(v)
+                                               for k, v in dinfo.items()})
+                    bucket = scene.bucket_for(int(dinfo['n_alive']))
+                    refresh_knn(state, bucket)
 
-            if do_reset:
-                opacity_reset_step(state)
+                if do_reset:
+                    opacity_reset_step(state)
 
-            # the JAX driver's one-shot alarm; the counts are host integers
-            # (a batch step's, summed over its frames), equal on every rank
-            if not overflow_alarmed:
-                overflow_alarmed = overflow_alarm(
-                    cfg, iteration, metrics['overflow/pairs'],
-                    metrics['overflow/rect'], quiet=not lead)
-            if logger and (iteration % log_every == 0 or iteration == 1):
-                m = host_metrics(metrics)
-                m['iter_time'] = (time.time() - t0) / log_every * 1000.0
-                logger.log(iteration, m)
-                if progress and (iteration % (log_every * 10) == 0
-                                 or iteration == 1):
-                    print(f"[{iteration}/{iterations}] "
-                          f"loss={m['loss/total_loss']:.5f} "
-                          f"psnr={m['psnr']:.2f} n={int(m['n_alive'])} "
-                          f"({m['iter_time']:.0f} ms/it)", flush=True)
-            if iteration % log_every == 0 or iteration == 1:
-                t0 = time.time()
+                # the JAX driver's one-shot alarm; the counts are host
+                # integers (a batch step's, summed over its frames), equal on
+                # every rank
+                if not overflow_alarmed:
+                    overflow_alarmed = overflow_alarm(
+                        cfg, iteration, metrics['overflow/pairs'],
+                        metrics['overflow/rect'], quiet=not lead)
+                if logger and (iteration % log_every == 0 or iteration == 1):
+                    m = host_metrics(metrics)
+                    m['iter_time'] = (time.time() - t0) / log_every * 1000.0
+                    logger.log(iteration, m)
+                    if progress and (iteration % (log_every * 10) == 0
+                                     or iteration == 1):
+                        print(f"[{iteration}/{iterations}] "
+                              f"loss={m['loss/total_loss']:.5f} "
+                              f"psnr={m['psnr']:.2f} n={int(m['n_alive'])} "
+                              f"({m['iter_time']:.0f} ms/it)", flush=True)
+                if iteration % log_every == 0 or iteration == 1:
+                    t0 = time.time()
 
-            if lead and iteration in save_iterations:
-                ply.save_arena_ply(
-                    os.path.join(exp_dir, 'point_cloud',
-                                 f'iteration_{iteration}', 'point_cloud.ply'),
-                    state.gauss_params, state.gauss_aux)
-            if lead and iteration in checkpoint_iterations:
-                scene.save_checkpoint(state, iteration, exp_dir)
+                if lead and iteration in save_iterations:
+                    ply.save_arena_ply(
+                        os.path.join(exp_dir, 'point_cloud',
+                                     f'iteration_{iteration}',
+                                     'point_cloud.ply'),
+                        state.gauss_params, state.gauss_aux)
+                if lead and iteration in checkpoint_iterations:
+                    scene.save_checkpoint(state, iteration, exp_dir)
     trace.at(trace_stop)
 
     return scene, state, logger
@@ -754,14 +768,17 @@ class TraceWindow:
     `start` up to `stop`: `at(iteration)` starts it at `start` and, at
     `stop`, synchronizes the device (the last step's kernels finish inside
     the trace, as the JAX driver blocks on the positions) and writes
-    `<trace_dir>/trace_<start>_<stop>.json`, a Chrome trace. A run that
-    ends inside the window writes it then. No `trace_dir`, no trace."""
+    `<trace_dir>/trace_<start>_<stop>.json`, a Chrome trace, and beside it
+    `spans_<start>_<stop>.json`, the tracer's `summary()` of the window
+    (the tracer is on for the window unless it was on already). A run that
+    ends inside the window writes them then. No `trace_dir`, no trace."""
 
     def __init__(self, trace_dir, start: int, stop: int, device):
         self.trace_dir, self.start, self.stop = trace_dir, start, stop
         self.device = torch.device(device)
         self.prof = None
         self.path = None
+        self.owns_tracer = False
 
     def at(self, iteration: int) -> None:
         if not self.trace_dir:
@@ -770,16 +787,24 @@ class TraceWindow:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == 'cuda':
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.owns_tracer = not tracing.enabled()
+            if self.owns_tracer:
+                tracing.enable()
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
         elif self.prof is not None and iteration >= self.stop:
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
             self.prof.stop()
+            if self.owns_tracer:
+                tracing.disable()
             os.makedirs(self.trace_dir, exist_ok=True)
             self.path = os.path.join(self.trace_dir,
                                      f'trace_{self.start}_{self.stop}.json')
             self.prof.export_chrome_trace(self.path)
+            with open(os.path.join(self.trace_dir, f'spans_{self.start}_'
+                                   f'{self.stop}.json'), 'w') as f:
+                json.dump(tracing.summary(), f, indent=1)
             self.prof = None
 
 
