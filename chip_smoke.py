@@ -56,7 +56,12 @@ them. Phases, any failure ends the run with a non-zero exit:
 10. K4, the narrow-row probe: its entry point (`tools.profile_narrow_dma.
    main`) with the launch count set to 0 just before and read just after,
    then the kernel against its plain version at P = 2^21 with its time,
-   the plain version's, `torch.sum`'s and the bound;
+   the plain version's, `torch.sum`'s and the bound; then K5, the
+   converter's optimizer step, at the zju377_full recipe's 129 leaves and
+   9 subject constants: two steps against the plain version on the card
+   (the clip engaged), 2 launches a step, the device ms of the kernel pair,
+   the plain loop and `torch._fused_adam_` (the yardstick), the host ms
+   of a step on both routes and the bound;
 11. the real-format data path: the port's JPEG decode, PNG read,
    undistortion and resize of the committed fixture frames
    (tests/fixtures/torch_frames) held to the SHA-256 digests of OpenCV's
@@ -191,6 +196,9 @@ K3_TOL = 1e-5
 # (hashgrid._HashGather) and the four AIAP neighbour gathers
 # (losses.full_aiap_loss: xyz and covariance, canonical and observed)
 K3_PER_STEP = 6
+# K5 launches of one training step: the clip's norm and the update (every
+# configuration clips; a converter with no parameter launches nothing)
+K5_PER_STEP = 2
 # the small training step on the card against the CPU: each loss term
 # within 1e-4 relative; each gradient leaf with cosine > 0.999 and a mean
 # error < 1e-3 of its largest value (bench.py's parity gate)
@@ -652,7 +660,7 @@ def determinism_probe(scene, state, cam, weights, bucket):
 def train_main():
     """Phase 6: TRAIN_STEPS full-width training steps."""
     from gsavatar_torch.config import BENCH_OVERRIDES, load_config
-    from gsavatar_torch.ops import segsum_blocked
+    from gsavatar_torch.ops import conv_adam, segsum_blocked
     from gsavatar_torch.ops.rasterizer import composite
     from gsavatar_torch.scene import Scene
     from gsavatar_torch.train import loss_weights, make_train_step
@@ -681,7 +689,8 @@ def train_main():
 
     counters = {'composite_fwd': composite.composite_pairs_fwd,
                 'composite_bwd': composite.composite_pairs_bwd,
-                'segsum': segsum_blocked.segment_sum_sorted_blocked}
+                'segsum': segsum_blocked.segment_sum_sorted_blocked,
+                'conv_adam': conv_adam.conv_adam_step}
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
@@ -720,7 +729,8 @@ def train_main():
     if not last5 < first5:
         fail("the training loss did not fall")
     want = {'composite_fwd': TRAIN_STEPS, 'composite_bwd': TRAIN_STEPS,
-            'segsum': K3_PER_STEP * TRAIN_STEPS}
+            'segsum': K3_PER_STEP * TRAIN_STEPS,
+            'conv_adam': K5_PER_STEP * TRAIN_STEPS}
     if launches != want:
         fail(f"train launches {launches}, expected {want}")
     # a non-finite gradient element of any step reaches the parameters or
@@ -1086,7 +1096,8 @@ def check_finite_records(logger, label):
 
 
 def driver_phase(counters, work):
-    """Phase 9: the training run, its files under `work`."""
+    """Phase 9: the training run, its files under `work`; returns (its
+    config, its probe, its launches)."""
     from gsavatar_torch import train
     from gsavatar_torch.config import BENCH_OVERRIDES, load_config
     cfg = load_config(list(BENCH_OVERRIDES) + list(DRIVER_OVERRIDES)
@@ -1140,7 +1151,8 @@ def driver_phase(counters, work):
         f"GiB")
     want = {'composite_fwd': DRIVER_ITERATIONS + val_frames,
             'composite_bwd': DRIVER_ITERATIONS,
-            'segsum': K3_PER_STEP * DRIVER_ITERATIONS, 'narrow_rows': 0}
+            'segsum': K3_PER_STEP * DRIVER_ITERATIONS, 'narrow_rows': 0,
+            'conv_adam': K5_PER_STEP * DRIVER_ITERATIONS}
     log(f"driver launches {launches} (expected {want})")
     if launches != want:
         fail(f"training run launches {launches}, expected {want}")
@@ -1151,7 +1163,7 @@ def driver_phase(counters, work):
     ckpt = os.path.join(work, 'run', f'ckpt{RESUME_FROM}.pt')
     if RESUME_FROM not in probe.saved or not os.path.exists(ckpt):
         fail(f"no checkpoint at {RESUME_FROM}")
-    return cfg, probe
+    return cfg, probe, launches
 
 
 def resume_and_predict(cfg, work, probe, counters):
@@ -1181,7 +1193,8 @@ def resume_and_predict(cfg, work, probe, counters):
     steps = [r['step'] for r in logger.history if 'loss/total_loss' in r]
     want = {'composite_fwd': RESUME_ITERATIONS,
             'composite_bwd': RESUME_ITERATIONS,
-            'segsum': K3_PER_STEP * RESUME_ITERATIONS, 'narrow_rows': 0}
+            'segsum': K3_PER_STEP * RESUME_ITERATIONS, 'narrow_rows': 0,
+            'conv_adam': K5_PER_STEP * RESUME_ITERATIONS}
     log(f"resumed run: steps {steps}, launches {launches}")
     if steps != list(range(RESUME_FROM + 1,
                            RESUME_FROM + RESUME_ITERATIONS + 1)) \
@@ -1202,7 +1215,7 @@ def resume_and_predict(cfg, work, probe, counters):
         fail(f"predict: {res}")
     # each test camera: its ground truth (K1) and its render (K1)
     want = {'composite_fwd': 2 * n_test, 'composite_bwd': 0, 'segsum': 0,
-            'narrow_rows': 0}
+            'narrow_rows': 0, 'conv_adam': 0}
     if launches != want:
         fail(f"predict launches {launches}, expected {want}")
 
@@ -1247,6 +1260,213 @@ def k4_phase(counters):
         'launches': launches['narrow_rows'], 'max_abs_err': max_err,
         'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
         'library_ms': lib_ms,
+    }
+
+
+# K5: the zju377_full recipe's converter (129 leaves, 2,237,865 floats; 9
+# subject constants, 4,836,792 floats), from the benchmark's train state:
+# zero moments and the count at 5,096
+ZJU_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'perfbench', 'configs', 'zju377_full.json')
+K5_COUNT = 5096
+# the kernel's global norm within this of the plain version's (both sum in
+# f32, in other orders)
+K5_NORM_RTOL = 1e-6
+F32_EPS = 2.0 ** -23
+
+
+def zju_converter_leaves():
+    """The zju377_full recipe's converter, built on the CPU from its
+    configuration: (cfg, {name: parameter}, {name: subject constant})."""
+    from gsavatar_torch.data import load_dataset
+    from gsavatar_torch.models.converter import build_converter
+    with open(ZJU_CONFIG) as f:
+        cfg = json.load(f)['config']
+    ds = load_dataset(cfg['dataset'], 'train', device='cpu')
+    conv = build_converter(cfg, ds.metadata, ds.assets)
+    return (cfg, {k: p.detach() for k, p in conv.named_parameters()},
+            conv.subject_constants())
+
+
+def k5_grads(params, consts, seed: int, scale: float):
+    """Seeded normal gradients times `scale` for the parameters and the
+    subject constants, on the parameters' device. The constants' come
+    with their dimensions reversed in memory (dense, not contiguous), as
+    autograd gives the shape blend's."""
+    dev = next(iter(params.values())).device
+    gen = torch.Generator(dev).manual_seed(seed)
+    draw = lambda shape: scale * torch.randn(shape, generator=gen,
+                                             device=dev)
+    grads = {k: draw(p.shape) for k, p in params.items()}
+    frozen = {k: draw(c.shape[::-1]).permute(*reversed(range(c.ndim)))
+              for k, c in consts.items()}
+    return grads, frozen
+
+
+def k5_run(cfg, params, grads, frozen, steps: int, plain: bool):
+    """`steps` steps of the converter's optimizer from copies of `params`,
+    zero moments and the count K5_COUNT, by the kernel (`step`) or by the
+    plain version on the same device (`step_plain`): (params, state, the
+    global norm of each step)."""
+    from gsavatar_torch.scene import ConverterOptimizer
+    opt = ConverterOptimizer(cfg, int(cfg['opt']['iterations']))
+    p = {k: v.clone() for k, v in params.items()}
+    state = opt.init(p)
+    state.count = K5_COUNT
+    every = list(grads.values()) + list(frozen.values())
+    norms = []
+    for _ in range(steps):
+        if plain:
+            opt.step_plain(p, grads, state, frozen)
+            state.count += 1
+            norms.append(torch.sqrt(sum((g * g).sum() for g in every)))
+        else:
+            opt.step(p, grads, state, frozen)
+            norms.append(opt.plan.g_norm.clone())
+    return p, state, torch.stack(norms)
+
+
+def k5_gaps(cfg, kernel, plain):
+    """The kernel's run against the plain version's, both from `k5_run`:
+    (the largest relative gap of the norms, the largest gap of each of the
+    parameters, the moments, as a share of what the norm's gap lets
+    through). A share up to 1 holds: the first moment moves by the norm's
+    gap and four roundings, the second by twice that, and a parameter's
+    step (Adam's update hardly moves when its gradient is scaled) by four
+    times it and sixteen roundings of the largest step size, plus two
+    roundings of the parameter."""
+    from gsavatar_torch.scene import ConverterOptimizer
+    delta = float(((kernel[2] - plain[2]).abs() / plain[2]).max())
+    opt = ConverterOptimizer(cfg, int(cfg['opt']['iterations']))
+    step = max(abs(lr) for lr in opt.lr.values())
+    worst = {'params': 0.0, 'mu': 0.0, 'nu': 0.0}
+    for k in plain[0]:
+        for what, a, b, tol in (
+                ('params', kernel[0][k], plain[0][k], lambda x: 2 * F32_EPS
+                 * x.abs() + step * (4 * delta + 16 * F32_EPS)),
+                ('mu', kernel[1].mu[k], plain[1].mu[k],
+                 lambda x: (delta + 4 * F32_EPS) * x.abs()),
+                ('nu', kernel[1].nu[k], plain[1].nu[k],
+                 lambda x: (2 * delta + 6 * F32_EPS) * x.abs())):
+            gap = (a - b).abs()
+            if gap.numel() and float(gap.max()) > 0:
+                share = torch.where(gap > 0, gap / tol(b), 0.0)
+                worst[what] = max(worst[what], float(share.max()))
+    return delta, worst
+
+
+def k5_foreach_step(opt, params, grads, state, frozen):
+    """`opt.step_plain`'s step in torch's multi-tensor `_foreach_`
+    operations (each over every leaf, the clip decided on the device, no
+    host read): the stock alternative beside K5, which the port never
+    calls. Advances `state.count` as `step` does."""
+    from gsavatar_torch.scene import param_group
+    names = list(params)
+    p = [params[k] for k in names]
+    mu = [state.mu[k] for k in names]
+    nu = [state.nu[k] for k in names]
+    u = [grads[k] for k in names]
+    if opt.grad_clip > 0:
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            u + list(frozen.values()))))
+        u = torch._foreach_mul(u, torch.where(
+            g_norm < opt.grad_clip, 1.0, opt.grad_clip / g_norm))
+    groups = [param_group(k) for k in names]
+    u = [x + opt.wd[g] * w if opt.wd[g] else x
+         for x, w, g in zip(u, p, groups)]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    count = state.count + 1
+    bc1 = float(1 - f32(opt.B1) ** count)
+    bc2 = float(1 - f32(opt.B2) ** count)
+    torch._foreach_mul_(mu, opt.B1)
+    torch._foreach_add_(mu, torch._foreach_mul(u, 1 - opt.B1))
+    torch._foreach_mul_(nu, opt.B2)
+    torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(u, u),
+                                               1 - opt.B2))
+    den = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, opt.EPS)
+    upd = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(upd, den)
+    torch._foreach_mul_(upd, [
+        float(f32(-opt.lr[g] * opt.gamma ** state.count)) for g in groups])
+    torch._foreach_add_(p, upd)
+    state.count = count
+    return state
+
+
+def k5_phase(main_launches: int):
+    """Phase 10, K5: the converter's optimizer step at the zju377_full
+    recipe's leaves; the kernel pair against the plain version on the card
+    (two steps with the clip engaged), its launches, then the device ms of
+    the pair, of the plain loop, of `k5_foreach_step` and of
+    `torch._fused_adam_` on the same parameters (the yardsticks; the port
+    calls neither), the host ms of a step on the three routes, and the
+    bound. `main_launches`: K5's launches in phase 9's training run, the
+    main path's count, which the record reports."""
+    from gsavatar_torch.ops.conv_adam import conv_adam_step
+    from gsavatar_torch.scene import ConverterOptimizer
+    cfg, params, consts = zju_converter_leaves()
+    params = {k: v.to(DEVICE) for k, v in params.items()}
+    grads, frozen = k5_grads(params, consts, SEED, 1.0)
+    before = conv_adam_step.launches
+    kernel = k5_run(cfg, params, grads, frozen, 2, plain=False)
+    launches = conv_adam_step.launches - before
+    plain = k5_run(cfg, params, grads, frozen, 2, plain=True)
+    delta, worst = k5_gaps(cfg, kernel, plain)
+    torch.cuda.synchronize()
+    log(f"K5 vs plain, two steps at {len(params)} leaves and "
+        f"{len(consts)} constants: norm {float(plain[2][0]):.6g}, relative "
+        f"gap {delta:.3e}; worst gap over its tolerance {worst}; launches "
+        f"{launches} (in the training run {main_launches})")
+    if launches != 2 * K5_PER_STEP:
+        fail(f"K5 launched {launches} times in two steps, expected "
+             f"{2 * K5_PER_STEP}")
+    if not delta <= K5_NORM_RTOL or max(worst.values()) > 1.0:
+        fail("K5 disagrees with its plain version")
+
+    opt = ConverterOptimizer(cfg, int(cfg['opt']['iterations']))
+    p = {k: v.clone() for k, v in params.items()}
+    state = opt.init(p)
+    state.count = K5_COUNT
+    step = lambda: opt.step(p, grads, state, frozen)
+    plain_step = lambda: opt.step_plain(p, grads, state, frozen)
+    foreach_step = lambda: k5_foreach_step(opt, p, grads, state, frozen)
+    ms = profiled_device_ms(step, 50)
+    plain_ms = profiled_device_ms(plain_step, 5)
+    foreach_ms = profiled_device_ms(foreach_step, 20)
+    host_ms = enqueue_ms(step, 200)
+    plain_host_ms = enqueue_ms(plain_step, 10)
+    foreach_host_ms = enqueue_ms(foreach_step, 50)
+    leaves = list(p.values())
+    steps = [torch.tensor(float(K5_COUNT), device=DEVICE) for _ in leaves]
+    lib_ms = profiled_device_ms(lambda: torch._fused_adam_(
+        leaves, [grads[k] for k in p], [state.mu[k] for k in p],
+        [state.nu[k] for k in p], [], steps, lr=1e-3, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-15, amsgrad=False,
+        maximize=False), 50)
+    n_params = sum(x.numel() for x in leaves)
+    n_all = n_params + sum(c.numel() for c in consts.values())
+    # the norm reads every gradient; the update reads g, p, mu, nu and
+    # writes p, mu, nu
+    nbytes = 4 * n_all + 4 * 7 * n_params
+    b_ms, b_by, t_bytes, t_ops = bound(nbytes, 2 * n_all + 16 * n_params)
+    log(f"K5 {ms:.4f} ms a step on the device ({nbytes / ms / 1e6:.1f} "
+        f"GB/s), host {host_ms:.4f} ms; plain {plain_ms:.4f} ms on the "
+        f"device, host {plain_host_ms:.3f} ms; _foreach_ {foreach_ms:.4f} "
+        f"ms on the device, host {foreach_host_ms:.4f} ms; "
+        f"torch._fused_adam_ {lib_ms:.4f} ms (no clip); bound {b_ms:.4f} ms "
+        f"(bytes {t_bytes:.4f}, operations {t_ops:.5f}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return {
+        'name': 'conv_adam', 'route': 'cuda',
+        'source': 'gsavatar_torch/csrc/conv_adam.cu',
+        'replaces': 'none: optax chain, gsavatar/scene.py',
+        'launches': main_launches, 'norm_rel_gap': delta, 'ms': ms,
+        'host_ms': host_ms, 'plain_ms': plain_ms,
+        'plain_host_ms': plain_host_ms, 'foreach_ms': foreach_ms,
+        'foreach_host_ms': foreach_host_ms, 'bound_ms': b_ms,
+        'bound_by': b_by, 'library_ms': lib_ms,
     }
 
 
@@ -1515,7 +1735,8 @@ def real_train(scene, cams, steps, counters, label, gpu):
         if m['overflow/pairs']:
             fail(f"{label} step {i}: pair_overflow {m['overflow/pairs']}")
     want = {'composite_fwd': steps, 'composite_bwd': steps,
-            'segsum': K3_PER_STEP * steps, 'narrow_rows': 0}
+            'segsum': K3_PER_STEP * steps, 'narrow_rows': 0,
+            'conv_adam': K5_PER_STEP * steps}
     if launches != want:
         fail(f"{label} launches {launches}, expected {want}")
     return state
@@ -1764,7 +1985,8 @@ def variant_run(name, overrides, counters, gpu):
             fail(f"variant {name} frame {i}: no alpha coverage")
     want = {'composite_fwd': VARIANT_STEPS + VARIANT_FRAMES,
             'composite_bwd': VARIANT_STEPS,
-            'segsum': k3_per_step(cfg) * VARIANT_STEPS, 'narrow_rows': 0}
+            'segsum': k3_per_step(cfg) * VARIANT_STEPS, 'narrow_rows': 0,
+            'conv_adam': (K5_PER_STEP if n_params else 0) * VARIANT_STEPS}
     if launches != want:
         fail(f"variant {name}: launches {launches}, expected {want}")
 
@@ -1949,7 +2171,7 @@ def run_app(label, fn, scene, series, counters, gpu, want_k1):
     finally:
         probe.remove(time.perf_counter())
     want = {'composite_fwd': want_k1, 'composite_bwd': 0, 'segsum': 0,
-            'narrow_rows': 0}
+            'narrow_rows': 0, 'conv_adam': 0}
     if launches != want:
         fail(f"{label}: launches {launches}, expected {want}")
     if len(probe.frames) != want_k1 or len(probe.renders) != want_k1:
@@ -2193,10 +2415,13 @@ def p14_cfg(work, tag, extra=()):
                        + list(extra) + [f"exp_dir={os.path.join(work, tag)}"])
 
 
-def p14_launches(iterations, val_frames, label, launches):
+def p14_launches(iterations, val_frames, label, launches, updates):
+    """`iterations` frames trained, `val_frames` rendered and `updates`
+    optimizer steps."""
     want = {'composite_fwd': iterations + val_frames,
             'composite_bwd': iterations,
-            'segsum': K3_PER_STEP * iterations, 'narrow_rows': 0}
+            'segsum': K3_PER_STEP * iterations, 'narrow_rows': 0,
+            'conv_adam': K5_PER_STEP * updates}
     log(f"{label} launches {launches} (expected {want})")
     if launches != want:
         fail(f"{label}: launches {launches}, expected {want}")
@@ -2258,7 +2483,8 @@ def multi_subject_phase(counters, work, gpu):
     check_finite_records(logger, 'multi-subject run')
     # S steps an iteration; each subject's validation renders 1 test frame
     # and 1 training frame
-    p14_launches(S * P14_ITERATIONS, 2 * S, 'multi-subject run', launches)
+    p14_launches(S * P14_ITERATIONS, 2 * S, 'multi-subject run', launches,
+                 S * P14_ITERATIONS)
     densify = {k: v for r in logger.history for k, v in r.items()
                if k.startswith('densify/')}
     if list(rows(logger, 'densify/n_alive')) != [10] or not any(
@@ -2315,7 +2541,7 @@ def multi_subject_phase(counters, work, gpu):
         work, 'b2', BATCH + (f"parallel.frames_per_step={BATCH_FRAMES}",),
         counters)
     p14_launches(BATCH_FRAMES * P14_ITERATIONS, 2,
-                 f'B={BATCH_FRAMES} run', launches)
+                 f'B={BATCH_FRAMES} run', launches, P14_ITERATIONS)
     if list(rows(blog, 'densify/n_alive')) != [10]:
         fail(f"B={BATCH_FRAMES} run: densify at "
              f"{list(rows(blog, 'densify/n_alive'))}")
@@ -2362,6 +2588,9 @@ P15_ROUTES = {
 # each rank's frames a step, by route: the data axis splits the batch, the
 # model axis renders every frame on each rank over half the tiles
 P15_FRAMES = {'data2': 1, 'model2': BATCH_FRAMES, 'subjects': 2}
+# each rank's optimizer steps an iteration: one on either route, one per
+# subject it holds
+P15_UPDATES = {'data2': 1, 'model2': 1, 'subjects': 2}
 P15_SUBJECTS = (f"parallel.subjects={[{'seed': i} for i in MS_SEEDS]}",
                 "parallel.data=2")
 # a route over ranks against one device's B-frame route: the first step's
@@ -2479,7 +2708,8 @@ def nccl_world_one(counters, work, gpu):
     if backend != 'nccl':
         fail(f"the world-size-1 group runs {backend}, not NCCL")
     for label, n in (('B=2 route', n0), ('world-1 NCCL route', n1)):
-        p14_launches(BATCH_FRAMES * P15_ITERATIONS, 0, label, n)
+        p14_launches(BATCH_FRAMES * P15_ITERATIONS, 0, label, n,
+                     P15_ITERATIONS)
     a, b = _state_tensors(s0), _state_tensors(s1)
     bad = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
     if rows(l0, 'loss/total_loss') != rows(l1, 'loss/total_loss') or bad:
@@ -2532,13 +2762,14 @@ class RankSteps:
 
 def kernel_counters():
     """Each kernel's wrapper by name: its `launches` count the launches."""
-    from gsavatar_torch.ops import segsum_blocked
+    from gsavatar_torch.ops import conv_adam, segsum_blocked
     from gsavatar_torch.ops.rasterizer import composite
     from gsavatar_torch.tools import profile_narrow_dma
     return {'composite_fwd': composite.composite_pairs_fwd,
             'composite_bwd': composite.composite_pairs_bwd,
             'segsum': segsum_blocked.segment_sum_sorted_blocked,
-            'narrow_rows': profile_narrow_dma.run}
+            'narrow_rows': profile_narrow_dma.run,
+            'conv_adam': conv_adam.conv_adam_step}
 
 
 def p15_rank(rank, port, work):
@@ -2669,7 +2900,8 @@ def mesh_phase(counters, work, gpu, frame_pairs, k2_args):
     for tag in P15_ROUTES:
         for r, res in enumerate(ranks):
             p14_launches(P15_FRAMES[tag] * P15_ITERATIONS, 0,
-                         f"{tag} rank {r}", res[tag]['launches'])
+                         f"{tag} rank {r}", res[tag]['launches'],
+                         P15_UPDATES[tag] * P15_ITERATIONS)
             if res[tag]['checked'] != P15_ITERATIONS:
                 fail(f"{tag} rank {r}: {res[tag]['checked']} steps checked")
         worst_loss = (0.0, '')
@@ -2703,7 +2935,8 @@ def mesh_phase(counters, work, gpu, frame_pairs, k2_args):
             f"launches per rank {ranks[0][tag]['launches']}")
     for r, res in enumerate(ranks):
         p14_launches(P15_FRAMES['subjects'] * P15_ITERATIONS, 0,
-                     f"subjects rank {r}", res['subjects']['launches'])
+                     f"subjects rank {r}", res['subjects']['launches'],
+                     P15_UPDATES['subjects'] * P15_ITERATIONS)
     for i in MS_ALONE:
         state, _, t1, _, _ = single_run(
             work, f'p15_alone{i}', [f"dataset.seed={MS_SEEDS[i]}",
@@ -3117,7 +3350,8 @@ def tooling_training(root, counters, gpu):
                   max(len(scene.train_dataset) // 10, 1)))))
     want = {'composite_fwd': TOOL_STEPS + n_val * len(TOOL_VAL),
             'composite_bwd': TOOL_STEPS,
-            'segsum': K3_PER_STEP * TOOL_STEPS, 'narrow_rows': 0}
+            'segsum': K3_PER_STEP * TOOL_STEPS, 'narrow_rows': 0,
+            'conv_adam': K5_PER_STEP * TOOL_STEPS}
     losses = list(rows(logger, 'loss/total_loss').values())
     log(f"tooling tree training ({gpu}): {TOOL_STEPS} steps, median "
         f"{st.median():.3f} ms/step without the first (first "
@@ -3342,7 +3576,7 @@ def main():
     serve_work = tempfile.mkdtemp(prefix='serve-', dir=kernels.BUILD)
     try:
         try:
-            cfg, probe = driver_phase(counters, work)
+            cfg, probe, driver_launches = driver_phase(counters, work)
             resume_and_predict(cfg, work, probe, counters)
             # phase 13 serves the last checkpoint written, the resumed
             # run's: ckpt40 follows the opacity reset at 30, where every
@@ -3353,6 +3587,7 @@ def main():
         finally:
             shutil.rmtree(work, ignore_errors=True)
         records.append(k4_phase(counters))
+        records.append(k5_phase(driver_launches['conv_adam']))
 
         # 11. the real-format data path; its trees and frames under build/
         work = tempfile.mkdtemp(prefix='data-', dir=kernels.BUILD)

@@ -27,18 +27,25 @@ from typing import Dict
 
 import torch
 
+from gsavatar_torch import tracing
 from gsavatar_torch.core import gaussians as G
 from gsavatar_torch.core.optim import ArenaAdamState, init_adam
 from gsavatar_torch.data import load_dataset
 from gsavatar_torch.device import resolve_device
 from gsavatar_torch.inference import raster_config_from, torch_generator
 from gsavatar_torch.models.converter import build_converter
+from gsavatar_torch.ops.conv_adam import Plan, conv_adam_step
 from gsavatar_torch.ops.sampling import sample_skinning_pool
 from gsavatar_torch.utils.transforms import expon_lr_schedule
 
 
 # the test dataset of each mode
 TEST_SPLIT = {'train': 'val', 'test': 'test', 'predict': 'predict'}
+
+
+# the converter optimizer's groups, in the order of K5's step and decay rows
+GROUPS = ('rigid', 'non_rigid', 'nr_latent', 'pose_correction', 'texture',
+          'tex_latent')
 
 
 def param_group(name: str) -> str:
@@ -70,7 +77,10 @@ class ConverterOptimizer:
     step -lr * gamma^t with gamma = lr_ratio^(1 / iterations). As in the
     JAX package, the global norm also counts the gradients of the frozen
     subject constants (`GaussianConverter.subject_constants`), which are
-    not updated."""
+    not updated.
+
+    CUDA tensors take K5 (`ops/conv_adam.py`: two launches a step, the
+    norm and the update), CPU tensors the plain version, `step_plain`."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-15
 
@@ -79,11 +89,11 @@ class ConverterOptimizer:
         self.gamma = float(opt['lr_ratio']) ** (1.0 / iterations)
         self.grad_clip = float(opt.get('grad_clip', 0.0))
         wd = float(opt.get('latent_weight_decay', 0.05))
-        self.lr = {g: float(opt.get(f'{g}_lr', 0.0)) for g in (
-            'rigid', 'non_rigid', 'nr_latent', 'pose_correction', 'texture',
-            'tex_latent')}
+        self.lr = {g: float(opt.get(f'{g}_lr', 0.0)) for g in GROUPS}
         self.wd = {g: (wd if g in ('nr_latent', 'tex_latent') else 0.0)
                    for g in self.lr}
+        self.plan = Plan()
+        self._group_ids = (None, None)
 
     def init(self, params: Dict[str, torch.Tensor]) -> ConverterOptState:
         return ConverterOptState(
@@ -95,12 +105,55 @@ class ConverterOptimizer:
              grads: Dict[str, torch.Tensor], state: ConverterOptState,
              frozen_grads: Dict[str, torch.Tensor] = None
              ) -> ConverterOptState:
-        """Updates `params` in place; returns the new state.
-        `frozen_grads` count in the clip's global norm only. A group may be
-        empty (the rigid group under `rigid=identity`), and so may the
-        whole converter (the plain-3DGS variant has no parameter)."""
-        if not params:
-            return ConverterOptState(mu={}, nu={}, count=state.count + 1)
+        """Updates `params` and `state` (its moments and count) in place
+        and returns `state`. `frozen_grads` count in the clip's global norm
+        only. A group may be empty (the rigid group under `rigid=identity`),
+        and so may the whole converter (the plain-3DGS variant has no
+        parameter)."""
+        if params:
+            device = next(iter(params.values())).device
+            if device.type == 'cuda':
+                self._kernel_step(params, grads, state, frozen_grads)
+                tracing.count('update/conv_kernel', 1)
+            elif device.type == 'cpu':
+                self.step_plain(params, grads, state, frozen_grads)
+            else:
+                raise ValueError(f"the converter's optimizer runs on CUDA or "
+                                 f"CPU tensors, not {device}")
+        state.count += 1
+        return state
+
+    def _kernel_step(self, params, grads, state, frozen_grads):
+        """K5 on the CUDA tensors: the host computes the bias corrections
+        and step sizes as `step_plain` does (f32 on the CPU) and hands them
+        to the kernel as scalars; it reads nothing from the device."""
+        names = tuple(params)
+        if self._group_ids[0] != names:
+            self._group_ids = (names, tuple(GROUPS.index(param_group(k))
+                                            for k in names))
+        count = state.count + 1
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        clip = max(self.grad_clip, 0.0)
+        adam = [clip, 1 - self.B1, self.B1, 1 - self.B2, self.B2,
+                float(1 - f32(self.B1) ** count),
+                float(1 - f32(self.B2) ** count), self.EPS]
+        steps = [float(f32(-self.lr[g] * self.gamma ** state.count))
+                 for g in GROUPS]
+        frozen = list((frozen_grads or {}).values()) if clip else []
+        conv_adam_step(self.plan, list(params.values()),
+                       [state.mu[k] for k in names],
+                       [state.nu[k] for k in names],
+                       [grads[k] for k in names], frozen,
+                       self._group_ids[1], adam, steps,
+                       [self.wd[g] for g in GROUPS])
+
+    @torch.no_grad()
+    def step_plain(self, params: Dict[str, torch.Tensor],
+                   grads: Dict[str, torch.Tensor], state: ConverterOptState,
+                   frozen_grads: Dict[str, torch.Tensor] = None) -> None:
+        """The plain version of K5, on any device: one eager expression per
+        operation and leaf, as the chain reads. Updates `params` and the
+        state's moments in place; `step` advances the count."""
         if self.grad_clip > 0:
             every = list(grads.values()) + list((frozen_grads or {}).values())
             g_norm = torch.sqrt(sum((g * g).sum() for g in every))
@@ -113,18 +166,18 @@ class ConverterOptimizer:
         dev = next(iter(params.values())).device
         bc1 = (1 - f32(self.B1) ** count).to(dev)
         bc2 = (1 - f32(self.B2) ** count).to(dev)
-        mu, nu = {}, {}
         for k, p in params.items():
             group = param_group(k)
             u = grads[k]
             if self.wd[group]:
                 u = u + self.wd[group] * p
-            mu[k] = (1 - self.B1) * u + self.B1 * state.mu[k]
-            nu[k] = (1 - self.B2) * (u * u) + self.B2 * state.nu[k]
-            upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.EPS)
+            mu = (1 - self.B1) * u + self.B1 * state.mu[k]
+            nu = (1 - self.B2) * (u * u) + self.B2 * state.nu[k]
+            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
             step_size = float(f32(-self.lr[group] * self.gamma ** state.count))
             p.add_(step_size * upd)
-        return ConverterOptState(mu=mu, nu=nu, count=count)
+            state.mu[k].copy_(mu)
+            state.nu[k].copy_(nu)
 
 
 def checkpoint_path(save_dir: str, iteration: int) -> str:

@@ -33,7 +33,12 @@ rank's tile range (`tile_base`): the same tolerances on the range, and
 the ranges put together equal to the whole launch bit for bit. The
 tooling: chip_smoke.py phase 16's tree built on the card gives the
 committed digests; the threaded preload (`native.decode_batch`,
-`Prefetcher`) equals the one-frame path on the card bit for bit."""
+`Prefetcher`) equals the one-frame path on the card bit for bit. K5, the
+converter's optimizer step, at the zju377_full recipe's leaves: bit for
+bit where the clip scales nothing (it rounds every operation as the plain
+version's expressions do); with the clip engaged the norm within 1e-6
+relative (f32 sums in another order) and the parameters and moments within
+what that gap and their roundings let through (`chip_smoke.k5_gaps`)."""
 import numpy as np
 import pytest
 import torch
@@ -807,3 +812,138 @@ def test_decode_batch_on_the_card_equals_the_one_frame_path(cuda, tmp_path,
         assert pf.next() is None
     finally:
         pf.close()
+
+
+# K5, the converter's optimizer step, at the zju377_full recipe's leaves:
+# 129 parameters and 9 subject constants (chip_smoke.zju_converter_leaves)
+@pytest.fixture(scope='module')
+def zju_leaves():
+    import chip_smoke
+    return chip_smoke.zju_converter_leaves()
+
+
+def _k5_case(zju_leaves, device, scale, clip=None, seed=5):
+    import chip_smoke
+    cfg, params, consts = zju_leaves
+    if clip is not None:
+        cfg = dict(cfg, opt=dict(cfg['opt'], grad_clip=clip))
+    params = {k: v.to(device) for k, v in params.items()}
+    grads, frozen = chip_smoke.k5_grads(params, consts, seed, scale)
+    return cfg, params, grads, frozen
+
+
+@pytest.mark.parametrize('clip,scale', [(0.0, 1.0), (0.1, 1e-6)],
+                         ids=['no_clip', 'clip_not_reached'])
+def test_k5_equals_plain_where_the_norm_scales_nothing(cuda, zju_leaves,
+                                                       clip, scale):
+    """Without a clip, or with a norm under it, two kernel steps give the
+    plain version's parameters and moments bit for bit on the card."""
+    import chip_smoke
+    case = _k5_case(zju_leaves, cuda, scale, clip)
+    kernel = chip_smoke.k5_run(*case, 2, plain=False)
+    plain = chip_smoke.k5_run(*case, 2, plain=True)
+    if clip:
+        assert float(plain[2].max()) < clip
+    for k in plain[0]:
+        assert torch.equal(kernel[0][k], plain[0][k]), k
+        assert torch.equal(kernel[1].mu[k], plain[1].mu[k]), k
+        assert torch.equal(kernel[1].nu[k], plain[1].nu[k]), k
+
+
+def test_k5_with_the_clip_engaged(cuda, zju_leaves):
+    """The clip engaged (norm about 2,660 against 0.1): the kernel's norm
+    within 1e-6 of the plain version's, the parameters and moments within
+    what that gap and the roundings let through (chip_smoke.k5_gaps)."""
+    import chip_smoke
+    cfg, *rest = case = _k5_case(zju_leaves, cuda, 1.0)
+    kernel = chip_smoke.k5_run(*case, 2, plain=False)
+    plain = chip_smoke.k5_run(*case, 2, plain=True)
+    assert float(plain[2].min()) > 1000 * float(cfg['opt']['grad_clip'])
+    delta, worst = chip_smoke.k5_gaps(cfg, kernel, plain)
+    assert delta <= chip_smoke.K5_NORM_RTOL, delta
+    assert max(worst.values()) <= 1.0, worst
+
+
+def test_k5_same_bits_on_every_launch(cuda, zju_leaves):
+    import chip_smoke
+    case = _k5_case(zju_leaves, cuda, 1.0)
+    a = chip_smoke.k5_run(*case, 3, plain=False)
+    b = chip_smoke.k5_run(*case, 3, plain=False)
+    assert torch.equal(a[2], b[2])
+    for k in a[0]:
+        assert torch.equal(a[0][k], b[0][k]), k
+        assert torch.equal(a[1].mu[k], b[1].mu[k]), k
+        assert torch.equal(a[1].nu[k], b[1].nu[k]), k
+
+
+def test_k5_two_launches_a_step(cuda, zju_leaves):
+    """Two launches a step, the tracer's `update/conv_kernel` once a step
+    and no host read of the device; the parameters' in-place versions
+    advance (the distilled skinning voxel keys its cache on them); the
+    table is built again when the state's tensors change."""
+    from gsavatar_torch import tracing
+    from gsavatar_torch.ops.conv_adam import conv_adam_step
+    from gsavatar_torch.scene import ConverterOptimizer
+    cfg, params, grads, frozen = _k5_case(zju_leaves, cuda, 1.0)
+    opt = ConverterOptimizer(cfg, int(cfg['opt']['iterations']))
+    state = opt.init(params)
+    versions = [p._version for p in params.values()]
+    before = conv_adam_step.launches
+    tracing.enable()
+    try:
+        for i in range(3):
+            with tracing.unit(i, 'train/step'):
+                assert opt.step(params, grads, state, frozen) is state
+    finally:
+        tracing.disable()
+    torch.cuda.synchronize()
+    assert conv_adam_step.launches == before + 6
+    counters = tracing.counters()
+    assert all(counters[(i, 'update/conv_kernel')] == 1 for i in range(3))
+    assert not any(name.startswith('sync/') for _, name in counters)
+    assert all(p._version > v for p, v in zip(params.values(), versions))
+    table = opt.plan.table
+    state = opt.init(params)
+    opt.step(params, grads, state, frozen)
+    assert opt.plan.table is not table
+
+
+def test_k5_wrapper_rejects_what_the_kernel_does_not_take(cuda, zju_leaves):
+    from gsavatar_torch.scene import ConverterOptimizer
+    cfg, params, grads, frozen = _k5_case(zju_leaves, cuda, 1.0)
+    name = 'non_rigid.mlp.lin1.weight'
+    const = 'pose_correction.posedirs'
+
+    def step(params=params, grads=grads, frozen=frozen):
+        opt = ConverterOptimizer(cfg, int(cfg['opt']['iterations']))
+        opt.step(params, grads, opt.init(params), frozen)
+
+    step()
+    for bad in (dict(grads, **{name: grads[name].double()}),
+                dict(grads, **{name: grads[name].t().contiguous().t()}),
+                dict(grads, **{name: grads[name].cpu()})):
+        with pytest.raises(ValueError):
+            step(grads=bad)
+    # the right size, but not one flat run: every other float of a wider
+    # array, a broadcast column; then the wrong type
+    rows, cols = frozen[const].shape
+    for bad in (frozen[const].new_zeros(rows, 2 * cols)[:, ::2],
+                frozen[const].new_zeros(rows, 1).expand(rows, cols),
+                frozen[const].half()):
+        bad = dict(frozen, **{const: bad})
+        with pytest.raises(ValueError):
+            step(frozen=bad)
+    with pytest.raises(ValueError):
+        step(params=dict(params, **{name: params[name].t()}))
+    # the groups' step sizes and decays: N_GROUPS each
+    from gsavatar_torch.ops import conv_adam as K5
+    ps = list(params.values())
+    opt = ConverterOptimizer(cfg, int(cfg['opt']['iterations']))
+    state = opt.init(params)
+    mu, nu = list(state.mu.values()), list(state.nu.values())
+    ids = (0,) * len(ps)
+    for steps, decays in (([0.0] * (K5.N_GROUPS - 1), [0.0] * K5.N_GROUPS),
+                          ([0.0] * K5.N_GROUPS, [0.0] * (K5.N_GROUPS + 1))):
+        with pytest.raises(ValueError, match='step sizes'):
+            K5.conv_adam_step(K5.Plan(), ps, mu, nu, list(grads.values()),
+                              [], ids, [0.0] * K5.N_ADAM, steps, decays)
