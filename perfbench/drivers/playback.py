@@ -140,16 +140,7 @@ def run(cell, seed: int, seconds: float, traced: bool, device='cuda',
 def _reduce(cell, prof, slice_info, lat):
     slice_s, n, pairs = slice_info
     cfg = cell.config['config']
-    h, w = cfg['dataset']['img_hw']
-    tiles = ((w + 15) // 16) * ((h + 15) // 16)
-    conv = counts.ConverterWork(cfg)
-    n_alive = int(cfg['dataset']['n_points'])
-    c = {'k1_ops': 0, 'k1_bytes': 0, 'ops': 0}
-    for p in pairs:
-        k1 = counts.k1(p, tiles)
-        c['k1_ops'] += k1['ops']
-        c['k1_bytes'] += k1['bytes']
-        c['ops'] += k1['ops'] + conv.frame_ops(n_alive)
+    c = counts.frame_counts(cfg, pairs, int(cfg['dataset']['n_points']))
     # the frame rate of the window after the traced slice, untraced
     rest = lat[n:]
     extra = {'rate': timing.rate(len(rest), sum(rest))} if rest else {}

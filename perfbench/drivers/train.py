@@ -315,27 +315,7 @@ def _stop(prof, sl, it, loop, device):
 
 
 def _reduce(cfg, prof, sl, pairs):
-    h, w = cfg['dataset']['img_hw']
-    tiles = ((w + 15) // 16) * ((h + 15) // 16)
-    conv = counts.ConverterWork(cfg)
-    opt = cfg['opt']
-    n_reg = int(opt.get('n_reg_pts', 1024))
-    crop = tuple(opt.get('perceptual_crop_hw', (256, 256)))
-    from perfbench.reference.plain.ops.lpips import VGG
-    # LPIPS: both images forward, the render's backward (input gradients)
-    lpips = 3 * counts.vgg_ops(VGG, min(crop[0], h), min(crop[1], w))
-    ssim = 2 * counts.ssim_ops(h, w)
-    hash_dims = conv.hash or (0, 0, 0)
-    c = {k: 0 for k in ('k1_ops', 'k1_bytes', 'k2_ops', 'k2_bytes',
-                        'k3_ops', 'k3_bytes', 'ops')}
-    for p, n in pairs:
-        parts = {'k1': counts.k1(p, tiles), 'k2': counts.k2(p, tiles),
-                 'k3': counts.k3_step(n, p, *hash_dims)}
-        for name, v in parts.items():
-            c[f'{name}_ops'] += v['ops']
-            c[f'{name}_bytes'] += v['bytes']
-        c['ops'] += (conv.step_ops(n, n_reg) + lpips + ssim
-                     + sum(v['ops'] for v in parts.values()))
+    c = counts.step_counts(cfg, pairs)
     extra = {'densify_rounds': sl['d1'] - sl['d0']}
     if 'rate' in sl:
         extra['rate'] = sl['rate']
