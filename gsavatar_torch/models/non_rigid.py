@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from gsavatar_torch import tracing
 from gsavatar_torch.core.gaussians import Gaussians
 from gsavatar_torch.utils import transforms as T
 from gsavatar_torch.utils.aabb import AABB
@@ -135,11 +136,12 @@ class _CondDeformBase(nn.Module):
         return self.pose_encoder.n_output_dims + self.latent_dim
 
     def _pose_feat(self, camera, latent_idx: int):
-        feat = self.pose_encoder(camera.rots, camera.Jtrs)     # (1, D)
-        if self.latent_dim > 0:
-            feat = torch.cat([feat, self.latent.weight[latent_idx][None]],
-                             dim=1)
-        return feat
+        with tracing.span('non_rigid/pose_code'):
+            feat = self.pose_encoder(camera.rots, camera.Jtrs)  # (1, D)
+            if self.latent_dim > 0:
+                feat = torch.cat(
+                    [feat, self.latent.weight[latent_idx][None]], dim=1)
+            return feat
 
     def _finish(self, gaussians, deltas, iteration: int):
         gate = float(iteration >= self.delay)
@@ -162,8 +164,9 @@ class MLPNonRigid(_CondDeformBase):
     def forward(self, gaussians: Gaussians, camera, iteration: int,
                 latent_idx: int, nr_cache=None):
         pose_feat = self._pose_feat(camera, latent_idx)
-        xyz_norm = self.aabb.normalize(gaussians.get_xyz, sym=True)
-        deltas = self.mlp(xyz_norm, cond=pose_feat)
+        with tracing.span('non_rigid/mlp'):
+            xyz_norm = self.aabb.normalize(gaussians.get_xyz, sym=True)
+            deltas = self.mlp(xyz_norm, cond=pose_feat)
         return self._finish(gaussians, deltas, iteration)
 
 
@@ -212,8 +215,9 @@ class HannwMLPNonRigid(_CondDeformBase):
     def forward(self, gaussians: Gaussians, camera, iteration: int,
                 latent_idx: int, nr_cache=None):
         pose_feat = self._pose_feat(camera, latent_idx)
-        xyz_norm = self.aabb.normalize(gaussians.get_xyz, sym=True)
-        deltas = self.mlp(xyz_norm, iteration, cond=pose_feat)
+        with tracing.span('non_rigid/mlp'):
+            xyz_norm = self.aabb.normalize(gaussians.get_xyz, sym=True)
+            deltas = self.mlp(xyz_norm, iteration, cond=pose_feat)
         deltas = deltas * float(iteration >= self.kick_in_iter)
         out, dx, ds, dr = _apply_deltas(
             gaussians, deltas[:, :3], deltas[:, 3:6], deltas[:, -4:],

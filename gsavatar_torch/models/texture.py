@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from gsavatar_torch import tracing
 from gsavatar_torch.core.gaussians import Gaussians
 from gsavatar_torch.ops import sh as sh_ops
 from gsavatar_torch.utils import transforms as T
@@ -90,6 +91,15 @@ class ColorMLP(nn.Module):
 
     def forward(self, gaussians: Gaussians, camera, latent_idx: int,
                 view_noise_rot=None):
+        with tracing.span('texture/inputs'):
+            x = self._inputs(gaussians, camera, latent_idx, view_noise_rot)
+        with tracing.span('texture/mlp'):
+            return torch.sigmoid(self.mlp(x))
+
+    def _inputs(self, gaussians: Gaussians, camera, latent_idx: int,
+                view_noise_rot):
+        """The MLP's input rows: the parts named in the module's
+        docstring, joined in that order."""
         feats = gaussians.get_features[..., 0]            # (N, feature_dim)
         n = feats.shape[0]
         parts = [feats]
@@ -119,7 +129,7 @@ class ColorMLP(nn.Module):
         if self.latent_dim > 0:
             parts.append(self.latent.weight[latent_idx][None].expand(
                 n, self.latent_dim))
-        return torch.sigmoid(self.mlp(torch.cat(parts, dim=1)))
+        return torch.cat(parts, dim=1)
 
 
 def get_texture(cfg: dict, metadata: dict, generator=None):

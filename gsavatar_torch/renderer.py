@@ -6,7 +6,8 @@ draws), then the rasterizer draws them with precomputed colours and
 covariances. One rasterizer pass gives both the colour image and the
 opacity image; `means2d_offset` is the screen-space gradient hook. The
 stages carry `tracing` spans (`render/converter` here, `converter/*` in
-the converter, `rasterize/*` in the rasterizer) that `python -m
+the converter, `non_rigid/*` and `texture/*` inside two of its stages,
+`rasterize/*` in the rasterizer) that `python -m
 gsavatar_torch.profile_render` prints."""
 from __future__ import annotations
 

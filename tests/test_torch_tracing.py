@@ -144,17 +144,17 @@ def test_units_carry_their_id_into_other_threads_and_backward():
     tracing.enable()
     seen = {}
 
-    def worker():
+    def worker(k):
         with tracing.span('worker'):
             tracing.count('n', 2.0)
-        seen['thread'] = threading.get_ident()
+        seen[k] = threading.get_ident()
 
     for k in (5, 6):
         with tracing.unit(k, 'train/step'):
             x = torch.ones(3, requires_grad=True)
             with tracing.span('train/backward'):
                 torch.autograd.grad(_Twice.apply(x).sum(), x)
-            t = threading.Thread(target=worker)
+            t = threading.Thread(target=worker, args=(k,))
             t.start()
             t.join(timeout=30)
             assert not t.is_alive()
@@ -170,14 +170,52 @@ def test_units_carry_their_id_into_other_threads_and_backward():
     for r in by_name['worker'] + by_name['train/backward'] + \
             by_name['backward/twice']:
         assert r.unit in (5, 6)
+    # each worker's record carries its own thread (the OS may or may not
+    # hand the second worker the first one's ident)
     for r in by_name['worker']:
-        assert r.parent is None and r.thread == seen['thread']
+        assert r.parent is None and r.thread == seen[r.unit]
     for r in by_name['train/backward']:
         assert r.parent == roots[r.unit].id
     assert [r.unit for r in by_name['backward/twice']] == [5, 6]
     assert by_name['outside'][0].unit is None
     assert tracing.counters() == {(5, 'n'): 3.0, (6, 'n'): 3.0,
                                   (None, 'n'): 1.0}
+
+
+# the stage spans inside the converter's, by the recipe's non-rigid field
+# and texture: (name, parent) once each in one frame
+STAGE_SPANS = {
+    ('mlp', 'mlp'): [('non_rigid/pose_code', 'converter/non_rigid'),
+                     ('non_rigid/mlp', 'converter/non_rigid'),
+                     ('texture/inputs', 'converter/texture'),
+                     ('texture/mlp', 'converter/texture')],
+    ('hashgrid', 'shallow_mlp'): [
+        ('non_rigid/pose_code', 'converter/non_rigid'),
+        ('texture/inputs', 'converter/texture'),
+        ('texture/mlp', 'converter/texture')],
+    ('hannw_mlp', 'sh'): [('non_rigid/pose_code', 'converter/non_rigid'),
+                          ('non_rigid/mlp', 'converter/non_rigid')],
+}
+
+
+@pytest.mark.parametrize('groups', sorted(STAGE_SPANS),
+                         ids=lambda g: '-'.join(g))
+def test_stage_spans_nest_in_the_converters_spans(groups):
+    cfg = load_config(STEP_TINY + [f'non_rigid={groups[0]}',
+                                   f'texture={groups[1]}'])
+    from gsavatar_torch.data import load_dataset
+    ds = load_dataset(cfg['dataset'], 'train')
+    scene = InferenceScene(cfg, ds.metadata, ds.assets,
+                           init_state(cfg, ds, seed=0, device='cpu'),
+                           device='cpu')
+    tracing.enable()
+    scene.render_frame(ds[0], ITERATION)
+    tracing.disable()
+    recs = tracing.records()
+    by_id = {r.id: r for r in recs}
+    stages = sorted((r.name, by_id[r.parent].name) for r in recs
+                    if r.name.startswith(('non_rigid/', 'texture/')))
+    assert stages == sorted(STAGE_SPANS[groups])
 
 
 def test_device_read_counts_each_hot_path_read_once(monkeypatch):
