@@ -24,6 +24,7 @@ import torch
 
 from gsavatar_torch.camera.camera import Camera
 from gsavatar_torch.config import load_config
+from gsavatar_torch.converter_graphs import ConverterGraphs
 from gsavatar_torch.core import gaussians as G
 from gsavatar_torch.data import base as data_base
 from gsavatar_torch.data import load_dataset
@@ -151,6 +152,7 @@ class InferenceScene:
         _fit_latent_tables(self.converter, state.converter)
         self.converter.load_state_dict(state.converter)
         self.converter.to(self.device).eval()
+        self.converter_graphs = ConverterGraphs(self.converter)
         self._set_arena(state.gauss_params, state.gauss_aux)
 
     def _set_arena(self, params: G.GaussianParams, aux: G.GaussianAux):
@@ -161,6 +163,7 @@ class InferenceScene:
         n_alive = int(alive.sum())
         self.bucket = n_alive if bool(alive[:n_alive].all()) else 0
         self._nr_cache = None
+        self.converter_graphs.reset(self.converter)
 
     def load_ply(self, path: str, capacity: Optional[int] = None
                  ) -> "InferenceScene":
@@ -242,14 +245,17 @@ class InferenceScene:
     def render_frame(self, camera, iteration: Optional[int] = None
                      ) -> RenderPackage:
         """Render one camera (its tensors on this scene's device) at
-        `iteration`, by default the scene's."""
+        `iteration`, by default the scene's. On the GPU the converter runs
+        as a CUDA graph from the second frame of a key on
+        (`converter_graphs.py`)."""
         it = iteration if iteration is not None else self.iteration
         gview = self.view()
         if self._nr_cache is None:
             # canonical positions are frozen at inference: encode once
             self._nr_cache = compute_nr_cache(self.converter, gview)
-        return render(self.converter, gview, camera, it, self.raster_config,
-                      self.background, nr_cache=self._nr_cache)
+        return render(self.converter_graphs, gview, camera, it,
+                      self.raster_config, self.background,
+                      nr_cache=self._nr_cache)
 
 
 def synthetic_scene(overrides: Sequence[str] = (), seed: int = 0,

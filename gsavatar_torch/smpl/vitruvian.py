@@ -10,8 +10,8 @@ import torch
 
 from gsavatar_torch.utils.transforms import euler_z
 
-_CHAIN_L = (1, 4, 7, 10)   # L-hip, L-knee, L-ankle, L-foot
-_CHAIN_R = (2, 5, 8, 11)   # R-hip, R-knee, R-ankle, R-foot
+_CHAIN_L = range(1, 13, 3)   # L-hip, L-knee, L-ankle, L-foot: 1, 4, 7, 10
+_CHAIN_R = range(2, 14, 3)   # R-hip, R-knee, R-ankle, R-foot: 2, 5, 8, 11
 
 
 def get_02v_bone_transforms(joints: np.ndarray) -> np.ndarray:
@@ -34,12 +34,24 @@ def get_02v_bone_transforms(joints: np.ndarray) -> np.ndarray:
     return trans.astype(np.float32)
 
 
+def _euler_z_on(deg: float, device) -> torch.Tensor:
+    """`euler_z(deg)` as a float32 (3, 3) tensor on `device`, written there
+    from Python numbers: no host-to-device copy, which would wait for the
+    GPU and which a CUDA graph cannot capture."""
+    R = torch.zeros(3, 3, dtype=torch.float32, device=device)
+    for (i, j), v in np.ndenumerate(euler_z(deg).astype(np.float32)):
+        if v:
+            R[i, j].fill_(float(v))
+    return R
+
+
 def get_02v_bone_transforms_torch(Jtr):
-    """The same on a (24, 3) tensor, differentiable in the joints."""
+    """The same on a (24, 3) tensor, differentiable in the joints; every
+    constant is made on the tensor's device (`_euler_z_on`, each chain's
+    joints by `arange`)."""
     out = torch.eye(4, dtype=Jtr.dtype, device=Jtr.device).repeat(24, 1, 1)
     for chain, deg in ((_CHAIN_L, 45), (_CHAIN_R, -45)):
-        R = torch.as_tensor(euler_z(deg), dtype=torch.float32,
-                            device=Jtr.device)
+        R = _euler_z_on(deg, Jtr.device)
         ts = []
         for i, j_idx in enumerate(chain):
             t = Jtr[j_idx]
@@ -47,7 +59,8 @@ def get_02v_bone_transforms_torch(Jtr):
                 t = R @ (t - Jtr[chain[i - 1]]) + ts[i - 1]
             ts.append(t)
         ts = torch.stack(ts) - torch.stack([Jtr[j] for j in chain]) @ R.T
-        idx = list(chain)
+        idx = torch.arange(chain.start, chain.stop, chain.step,
+                           device=Jtr.device)
         out[idx, :3, :3] = R
         out[idx, :3, 3] = ts
     return out

@@ -38,7 +38,12 @@ converter's optimizer step, at the zju377_full recipe's leaves: bit for
 bit where the clip scales nothing (it rounds every operation as the plain
 version's expressions do); with the clip engaged the norm within 1e-6
 relative (f32 sums in another order) and the parameters and moments within
-what that gap and their roundings let through (`chip_smoke.k5_gaps`)."""
+what that gap and their roundings let through (`chip_smoke.k5_gaps`). The
+converter at playback as a CUDA graph (`converter_graphs.py`), in each of
+the benchmark's three playback recipes: a replayed frame's positions,
+colours and image equal the eager frame's bit for bit (the same kernels on
+the same inputs), also in a package kept while two later frames replayed;
+a capture that reads the device leaves its key eager."""
 import numpy as np
 import pytest
 import torch
@@ -947,3 +952,98 @@ def test_k5_wrapper_rejects_what_the_kernel_does_not_take(cuda, zju_leaves):
         with pytest.raises(ValueError, match='step sizes'):
             K5.conv_adam_step(K5.Plan(), ps, mu, nu, list(grads.values()),
                               [], ids, [0.0] * K5.N_ADAM, steps, decays)
+
+
+# the benchmark's three playback recipes (perfbench/configs/*.json's groups)
+GRAPH_RECIPES = {
+    'zju377_full': ['pose_correction=direct', 'non_rigid=hashgrid',
+                    'rigid=skinning_field', 'texture=shallow_mlp',
+                    'option=iter15k'],
+    'ps_female3_rigid': ['pose_correction=none', 'non_rigid=identity',
+                         'rigid=skinning_field', 'texture=sh',
+                         'option=iter30k'],
+    'zju377_mlp': ['pose_correction=direct', 'non_rigid=mlp',
+                   'rigid=skinning_field', 'texture=mlp', 'option=iter15k'],
+}
+
+
+def _graph_frames(recipe, cuda, n=5):
+    """A small avatar of `recipe` on the card, `n` live-camera frames of a
+    seeded motion on an orbit through `render_frame` (one tracer unit
+    each), the same frames rendered eagerly afterwards by
+    `renderer.render`, and the tracer's counters."""
+    from gsavatar_torch import tracing
+    from gsavatar_torch.camera.live import live_camera
+    from gsavatar_torch.inference import synthetic_scene
+    from gsavatar_torch.motion.series import MotionSeries
+    from gsavatar_torch.renderer import render
+    scene, _ = synthetic_scene(SMALL + GRAPH_RECIPES[recipe], seed=0,
+                               device=cuda)
+    rng = np.random.default_rng(1)
+    series = MotionSeries({'pose': 0.2 * rng.standard_normal((n, 72))},
+                          scene.assets, device=cuda)
+    cams = []
+    for k in range(n):
+        rots, jtrs, bt = series.camera_pose_fields(k, scene.metadata)
+        a = 0.4 * k
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]], np.float32)
+        cams.append(live_camera(R, [0.0, 0.0, 2.5], width=64, height=64,
+                                rots=rots, Jtrs=jtrs, bone_transforms=bt,
+                                device=cuda))
+    tracing.enable()
+    kept = []
+    for k, cam in enumerate(cams):
+        with tracing.unit(k, 'frame'):
+            kept.append(scene.render_frame(cam))
+    tracing.disable()
+    counted = tracing.counters()
+    with torch.inference_mode():
+        eager = [render(scene.converter, scene.view(), cam, scene.iteration,
+                        scene.raster_config, scene.background,
+                        nr_cache=scene._nr_cache) for cam in cams]
+    return scene, kept, eager, counted
+
+
+@pytest.mark.parametrize('recipe', sorted(GRAPH_RECIPES))
+def test_replayed_converter_frames_equal_eager_frames(cuda, recipe):
+    """Frame 1 eager, frame 2 captured, then one replay a frame; every
+    package, also one kept while two later frames replayed, holds its own
+    frame's positions, colours and image bit for bit."""
+    scene, kept, eager, counted = _graph_frames(recipe, cuda)
+    assert counted[(0, 'converter/graph_eager')] == 1.0
+    assert counted[(1, 'converter/graph_capture')] == 1.0
+    for k in range(2, len(kept)):
+        assert counted[(k, 'converter/graph_replay')] == 1.0
+        assert (k, 'converter/graph_eager') not in counted
+    for k, (pkg, ref) in enumerate(zip(kept, eager)):
+        for a, b in ((pkg.deformed_gaussians.get_xyz,
+                      ref.deformed_gaussians.get_xyz),
+                     (pkg.colors, ref.colors), (pkg.render, ref.render),
+                     (pkg.opacity_render, ref.opacity_render)):
+            assert torch.equal(a, b), (recipe, k)
+    assert not torch.equal(kept[2].deformed_gaussians.get_xyz,
+                           kept[4].deformed_gaussians.get_xyz)
+
+
+def test_converter_capture_that_reads_the_device_stays_eager(cuda,
+                                                             monkeypatch):
+    """A stage that reads a device value on the host cannot be captured:
+    the key runs eagerly from then on, the card keeps working, and the
+    frames equal the eager ones."""
+    from gsavatar_torch.models.texture import ColorMLP
+    plain = ColorMLP.forward
+
+    def reads(self, *args, **kw):
+        out = plain(self, *args, **kw)
+        float(out.sum())
+        return out
+
+    monkeypatch.setattr(ColorMLP, 'forward', reads)
+    with pytest.warns(UserWarning, match='runs eagerly'):
+        scene, kept, eager, counted = _graph_frames('zju377_full', cuda)
+    assert counted[(1, 'converter/graph_unsupported')] == 1.0
+    for k in range(len(kept)):
+        assert counted[(k, 'converter/graph_eager')] == 1.0
+        assert torch.equal(kept[k].render, eager[k].render)
+    assert not scene.converter_graphs._graphs
