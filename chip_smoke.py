@@ -2398,6 +2398,11 @@ class StepTimes:
     def median(self) -> float:
         return later_median(self.ms)
 
+    def per_iteration(self, n: int) -> list:
+        """The times summed over each run of `n` steps: an iteration's,
+        where a driver makes `n` steps an iteration (one a subject)."""
+        return [sum(self.ms[k:k + n]) for k in range(0, len(self.ms), n)]
+
 
 def later_median(ms: list) -> float:
     """The median of the step times after the first."""
@@ -2465,6 +2470,7 @@ def multi_subject_phase(counters, work, gpu):
     """Phase 14: S = 4 subjects at the bench shape against subjects 0 and 3
     alone; B = 2 frames per step; the B = 1 route against the plain route;
     a small B = 2 step on the card against the CPU."""
+    from gsavatar_torch import train
     from gsavatar_torch.parallel import multi_subject as msm
     S = len(MS_SEEDS)
     cfg = p14_cfg(work, 'ms', [
@@ -2475,7 +2481,7 @@ def multi_subject_phase(counters, work, gpu):
         prerendered(scene)
     log(f"multi-subject set-up: {S} subjects, "
         f"{time.perf_counter() - t0:.1f} s")
-    with StepTimes(msm, 'make_multi_subject_step') as t_ms:
+    with StepTimes(train, 'make_train_step') as t_ms:
         (_, states, logger), launches, ms_mem = memory_of(
             counters, lambda: msm.training_multi_subject(
                 cfg, ms=ms, log_every=1, progress=False))
@@ -2528,11 +2534,12 @@ def multi_subject_phase(counters, work, gpu):
             f"({int(state.gauss_aux.alive.sum())} alive)")
         del state
     one, one_mem = alone[MS_ALONE[0]]
-    log(f"multi-subject S={S} ({gpu}): median {t_ms.median():.3f} ms per "
+    ms_median = later_median(t_ms.per_iteration(S))
+    log(f"multi-subject S={S} ({gpu}): median {ms_median:.3f} ms per "
         f"iteration (iterations 2-{P14_ITERATIONS}, host clock, synced), "
         f"one subject alone " + ", ".join(
             f"{t:.3f} ms (subject {i})" for i, (t, _) in alone.items())
-        + f"; ratio {t_ms.median() / one:.2f}; peak device memory "
+        + f"; ratio {ms_median / one:.2f}; peak device memory "
         f"{gib(ms_mem)}, one subject alone " + ", ".join(
             gib(m) for _, m in alone.values()))
 
@@ -2811,12 +2818,13 @@ def p15_rank(rank, port, work):
                                    subjects=mine)
         for scene in ms.scenes:
             prerendered(scene)
-        with StepTimes(msm, 'make_multi_subject_step') as t_ms:
+        with StepTimes(train, 'make_train_step') as t_ms:
             (_, states, _), launches = driven(
                 counters, lambda: msm.training_multi_subject(
                     cfg, ms=ms, log_every=1, progress=False,
                     max_iterations=P15_ITERATIONS))
-        out['subjects'] = {'ms': t_ms.ms, 'launches': launches}
+        out['subjects'] = {'ms': t_ms.per_iteration(len(mine)),
+                           'launches': launches}
         for i, state in zip(mine, states):
             if i in MS_ALONE:
                 torch.save({k: v.cpu() for k, v in

@@ -3,21 +3,22 @@ subjects).
 
 Counterpart of `gsavatar/parallel/multi_subject.py`. `cfg.parallel.
 subjects` is a list of dataset overrides, one per subject; subject i is
-the single-subject config with its overrides (`subject_scene_cfg`), built
-as a `Scene` with seed + i. The JAX package stacks the S states on a
-leading axis and vmaps the single-subject step over it, which needs every
-subject at one static shape: one bucket (the max over the subjects), the
-skinning pools as stacked inputs, the subject constants in a flax variable
-collection. The port keeps per-subject buffers instead, a list of S
-`TrainState`s, and runs the single-subject `step_core`, `densify_step`,
-`opacity_reset_step` and `refresh_knn` on each subject's own state, in
-subject order: each subject with its own Scene (its skinning pool, AABB
-and SMPL tables), at its own bucket, and with the split noise of each
-densify drawn from its own state's generator (the JAX package gives every
-lane `PRNGKey(iteration)`). So subject i of a multi-subject run equals, bit
+the single-subject config with its overrides (`subject_scene_cfg`),
+built as a `Scene` with seed + i. The JAX package stacks the S states on
+a leading axis and vmaps the single-subject step over it, which needs
+every subject at one static shape: one bucket (the max over the
+subjects), the skinning pools as stacked inputs, the subject constants
+in a flax variable collection. The port keeps per-subject buffers
+instead, a list of S `TrainState`s, and runs the single-subject
+iteration (`train.TrainLoop`: the step, densify, the opacity reset and
+`refresh_knn`) on each subject's own state, in subject order: each
+subject with its own Scene (its skinning pool, AABB and SMPL tables), at
+its own bucket, and with the split noise of each densify drawn from its
+own state's generator (the JAX package gives every lane
+`PRNGKey(iteration)`). So subject i of a multi-subject run equals, bit
 for bit on the same device, the single-subject run of `train.training`
-with seed + i and dataset overrides i: the same frames (`default_rng(seed +
-i)`), the same draws, the same operations.
+with seed + i and dataset overrides i: the same frames
+(`default_rng(seed + i)`), the same draws, the same operations.
 
 With `parallel.data` = D > 1 the run is D ranks of a process group
 (`parallel/mesh.py`), and data rank d trains the subjects
@@ -100,7 +101,9 @@ def make_multi_subject_step(ms: MultiSubjectScene):
     buckets=None, draws=None) -> (states, metrics): each subject's
     `train.make_step_core` on its own state and camera, in subject order,
     at its own bucket and learning rate; `metrics` and `draws` (to replay)
-    hold one entry per subject."""
+    hold one entry per subject. The counterpart of the JAX package's
+    vmapped subject step; the driver steps each subject through its
+    `train.TrainLoop`, the same operations."""
     cores = [train.make_step_core(s) for s in ms.scenes]
 
     def ms_step(states, cameras, iteration: int, weights: dict,
@@ -119,47 +122,21 @@ def make_multi_subject_step(ms: MultiSubjectScene):
     return ms_step
 
 
-def make_multi_subject_densify(ms: MultiSubjectScene):
-    """(densify_step, opacity_reset_step, refresh_knn) over the subjects'
-    states: `densify_step(states, iteration, use_screen_size_prune)` ->
-    (states, infos) with each subject's split noise from its own state's
-    generator (`train.densify_draws`); `opacity_reset_step(states)`;
-    `refresh_knn(states, buckets)`."""
-
-    def densify_step(states, iteration: int, use_screen_size_prune: bool):
-        infos = []
-        for i, scene in enumerate(ms.scenes):
-            eps1, eps2 = train.densify_draws(states[i], iteration)
-            states[i], info = train.densify_step(scene, states[i], eps1, eps2,
-                                                 use_screen_size_prune)
-            infos.append(info)
-        return states, infos
-
-    def opacity_reset_step(states):
-        return [train.opacity_reset_step(s) for s in states]
-
-    def refresh_knn(states, buckets):
-        return [train.refresh_knn(s, b) for s, b in zip(states, buckets)]
-
-    return densify_step, opacity_reset_step, refresh_knn
-
-
 def training_multi_subject(cfg: dict, max_iterations=None,
                            log_every: int = 10, progress: bool = True,
                            device=None,
                            ms: Optional[MultiSubjectScene] = None):
-    """The multi-subject driver: the single-subject driver's schedule and
-    loss weights, each subject's frames popped without replacement from
-    `default_rng(seed + i)`, every subject advancing one iteration per
-    loop. With `parallel.data` = D > 1 this process is one of D ranks and
-    trains its block of the subjects (on `cuda:LOCAL_RANK` under NCCL
-    unless `device` says otherwise). Rank 0 logs per-subject validation
-    under `subject{i}/...`, the densify counts as lists over the subjects,
-    and rows of each metric's mean over the subjects beside
-    `subject{i}/<key>`, and writes each subject's final checkpoint under
-    `exp_dir/subject{i}`. `ms`, this rank's subjects' scenes, is built from
-    `cfg` unless given. Returns (MultiSubjectScene, this rank's states,
-    logger; None on the other ranks)."""
+    """The multi-subject driver: one `train.TrainLoop` a subject, its frames
+    popped without replacement from `default_rng(seed + i)`, every subject
+    advancing one iteration per loop. With `parallel.data` = D > 1 this
+    process is one of D ranks and trains its block of the subjects (on
+    `cuda:LOCAL_RANK` under NCCL unless `device` says otherwise). Rank 0
+    logs per-subject validation under `subject{i}/...`, the densify counts
+    as lists over the subjects, and rows of each metric's mean over the
+    subjects beside `subject{i}/<key>`, and writes each subject's final
+    checkpoint under `exp_dir/subject{i}`. `ms`, this rank's subjects'
+    scenes, is built from `cfg` unless given. Returns (MultiSubjectScene,
+    this rank's states, logger; None on the other ranks)."""
     par = cfg.get('parallel') or {}
     if int(par.get('model', 0) or 0) > 1:
         raise ValueError("multi-subject training shards subjects over "
@@ -184,18 +161,16 @@ def training_multi_subject(cfg: dict, max_iterations=None,
     if ms.subjects != mine:
         raise ValueError(f"the scenes hold subjects {list(ms.subjects)}, "
                          f"this rank trains {list(mine)}")
-    opt = cfg['opt']
-    iterations = int(max_iterations or opt['iterations'])
+    iterations = int(max_iterations or cfg['opt']['iterations'])
 
     def gather(rows: dict) -> list:
         """{subject: row} of this rank's subjects -> the S rows."""
         return mesh.gather_rows(rows, S) if mesh else \
             [rows[i] for i in range(S)]
 
-    ms_step = make_multi_subject_step(ms)
-    densify_step, opacity_reset_step, refresh_knn = \
-        make_multi_subject_densify(ms)
-    states = ms.init_states()
+    # subject i picks its frames as its single-subject run does
+    loops = [train.TrainLoop(cfg, s, state, train.make_train_step(s), seed + i)
+             for i, s, state in zip(mine, ms.scenes, ms.init_states())]
 
     exp_dir = cfg.get('exp_dir') or os.path.join(
         'exp', str(cfg.get('name', 'run')) + '-ms')
@@ -204,77 +179,41 @@ def training_multi_subject(cfg: dict, max_iterations=None,
         os.makedirs(exp_dir, exist_ok=True)
         logger = MetricLogger(os.path.join(exp_dir, 'metrics.jsonl'))
 
-    buckets = [train.alive_bucket(s, st) for s, st in zip(ms.scenes, states)]
-    flags = dict(densify_until=int(opt['densify_until_iter']),
-                 densify_from=int(opt['densify_from_iter']),
-                 densify_interval=int(opt['densification_interval']),
-                 opacity_reset_interval=int(opt['opacity_reset_interval']),
-                 gauss_delay=int(cfg['model']['gaussian'].get('delay', 0)),
-                 white_bg=bool(cfg['dataset'].get('white_background',
-                                                   False)))
-
-    # subject i picks its frames as its single-subject run does
-    rngs = [np.random.default_rng(seed + i) for i in mine]
-    stacks: List[list] = [[] for _ in mine]
-
-    def next_frame_idx(j):
-        if not stacks[j]:
-            stacks[j] = list(range(len(ms.scenes[j].train_dataset)))
-        return stacks[j].pop(int(rngs[j].integers(len(stacks[j]))))
-
     test_interval = int(cfg.get('test_interval', 0) or 0)
     max_val_frames = cfg.get('max_val_frames')
     validations = [train.make_validation(s) for s in ms.scenes]
-    overflow_alarmed = False
 
     t0 = time.time()
     for iteration in range(1, iterations + 1):
-        weights = train.loss_weights(cfg, iteration)
-        in_window, do_densify, do_reset, use_ss = train.schedule_flags(
-            iteration, **flags)
-        weights['_in_densify_window'] = 1.0 if in_window else 0.0
-        cameras = [s.device_camera(next_frame_idx(j), 'train')
-                   for j, s in enumerate(ms.scenes)]
-        states, metrics = ms_step(
-            states, cameras, iteration, weights,
-            active_sh_degree=ms.scenes[0].active_sh_degree(iteration),
-            buckets=buckets)
+        cameras = [lp.scene.device_camera(lp.next_frame(), 'train')
+                   for lp in loops]
+        metrics = [lp.step(iteration, c) for lp, c in zip(loops, cameras)]
 
         if test_interval > 0 and iteration % test_interval == 0:
             results = gather({i: validation(
-                states[j], iteration, None, exp_dir,
-                max_val_frames=max_val_frames, bucket=buckets[j],
-                quiet=not lead) for j, (i, validation) in
-                enumerate(zip(mine, validations))})
+                lp.state, iteration, None, exp_dir,
+                max_val_frames=max_val_frames, bucket=lp.bucket,
+                quiet=not lead) for i, lp, validation in
+                zip(mine, loops, validations)})
             for i, res in enumerate(results):
                 if logger:
                     logger.log(iteration, {f'subject{i}/{k}': v
                                            for k, v in res.items()})
             t0 = time.time()   # validation is not iteration time
 
-        if do_densify:
-            states, infos = densify_step(states, iteration, use_ss)
-            counts = [dict(zip(info, torch.stack(list(info.values()))
-                               .tolist())) for info in infos]
-            buckets = [s.bucket_for(int(c['n_alive']))
-                       for s, c in zip(ms.scenes, counts)]
-            states = refresh_knn(states, buckets)
-            counts = gather({i: {k: int(v) for k, v in c.items()}
-                             for i, c in zip(mine, counts)})
+        counts = [lp.after_step(iteration) for lp in loops]
+        if counts[0] is not None:      # every subject's schedule is cfg's
+            counts = gather(dict(zip(mine, counts)))
             if logger:
                 logger.log(iteration, {f'densify/{k}': [c[k] for c in counts]
                                        for k in counts[0]})
-        if do_reset:
-            states = opacity_reset_step(states)
 
-        # every rank sees every subject's counts, so all raise together
+        # every rank sees every subject's counts, so all raise together;
+        # the run has one alarm, the first loop's
         for c in gather({i: {'pairs': m['overflow/pairs'],
                              'rect': m['overflow/rect']}
                          for i, m in zip(mine, metrics)}):
-            if overflow_alarmed:
-                break
-            overflow_alarmed = train.overflow_alarm(
-                cfg, iteration, c['pairs'], c['rect'], quiet=not lead)
+            loops[0].alarm(iteration, c['pairs'], c['rect'], quiet=not lead)
         if iteration % log_every == 0 or iteration == 1:
             hosts = gather({i: train.host_metrics(m)
                             for i, m in zip(mine, metrics)})
@@ -294,6 +233,7 @@ def training_multi_subject(cfg: dict, max_iterations=None,
                       f"({row['iter_time']:.0f} ms/it)", flush=True)
             t0 = time.time()
 
+    states = [lp.state for lp in loops]
     for i in range(S):
         owner = i // per
         payload = None

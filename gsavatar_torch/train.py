@@ -3,9 +3,9 @@
 Counterpart of `gsavatar/train.py`: `loss_weights`, `schedule_flags`,
 `make_loss_fn`, `make_step_core`, `make_train_step`, `make_densify_step`
 (here `densify_step`, `opacity_reset_step`, `refresh_knn`),
-`make_validation`, `training` and `main`. One step renders
-the camera at `train=True`, assembles every loss term (L1, D-SSIM, mask,
-skinning, AIAP, opacity, LPIPS on the foreground crop, the model
+`make_validation`, `training` (around `TrainLoop`) and `main`. One step
+renders the camera at `train=True`, assembles every loss term (L1, D-SSIM,
+mask, skinning, AIAP, opacity, LPIPS on the foreground crop, the model
 regularizers), runs the backward pass (through K2 and K3 on the card),
 steps the converter's optimizer and the arena Adam, and adds the densify
 statistics. The one-frame step is the B = 1 case of `make_batch_step_core`,
@@ -24,31 +24,33 @@ through `densify_draws`. The frames are picked as the JAX driver picks
 them, popping without replacement through `np.random.default_rng(seed)`,
 so both packages visit the same frames.
 
-The driver (`training`, `gsavatar/train.py:446-790`) runs the JAX
-driver's routes in its order: `parallel.subjects` goes to
+The driver (`training`, `gsavatar/train.py:446-790`) runs the JAX driver's
+routes in its order: `parallel.subjects` goes to
 `parallel/multi_subject.py`; `parallel.data` = D >= 1 with
 `parallel.model` = M >= 1 takes B = `parallel.frames_per_step` (else D)
 frames per step over a D x M mesh (`parallel/mesh.py`,
 `parallel/shard.py:make_sharded_train_step`; `gsavatar/train.py:485-520,
 641-652`), with the JAX driver's ValueErrors when B is not a multiple of D
 or D x M is not the world size of the process group. With D x M > 1 each
-process is one rank (`torchrun`, or `main`'s own spawn, one rank per
-GPU): every rank pops the same frames, renders its data row's, and runs
+process is one rank (`torchrun`, or `main`'s own spawn, one rank per GPU):
+every rank pops the same frames, renders its data row's, and runs
 validation, densify, the reset and `refresh_knn` on its own copy of the
 state, which stays equal to rank 0's bit for bit; the log, the PLY, the
 checkpoints and the prints are rank 0's (`gsavatar/train.py:475, 519,
 769`). Each iteration picks its B frames, the schedule, the step,
-validation when due (before densify and the reset), densify and prune
-then `refresh_knn` over the new alive-prefix bucket, the opacity reset,
-the log and the overflow alarm, the PLY and the checkpoint. The JAX
-driver also right-sizes its pair arena and tile window from the observed
-workload (its pair/rect ladder), because XLA compiles one step per static
-shape. The port's pair arrays are sized by their count, so it runs at the
-config's `max_pairs` / `max_rect` ceilings and keeps only the alarm: the
-pair overflow and `rect_dropped` counts (summed over a batch's frames) are
-host integers in every step, so it checks them every iteration, and
-`strict_overflow` raises. `save_val_images` writes each validation
-frame's GT | render | 5x|error| strip as a PNG (`save_strip`);
+validation when due (before densify and the reset), densify and prune then
+`refresh_knn` over the new alive-prefix bucket, the opacity reset, the log
+and the overflow alarm, the PLY and the checkpoint. `TrainLoop` holds one
+subject's part of that (the frames, the schedule, the step, densify, the
+reset and the alarm), which the multi-subject driver runs once a subject.
+The JAX driver also right-sizes its pair arena and tile window from the
+observed workload (its pair/rect ladder), because XLA compiles one step
+per static shape. The port's pair arrays are sized by their count, so it
+runs at the config's `max_pairs` / `max_rect` ceilings and keeps only the
+alarm: the pair overflow and `rect_dropped` counts (summed over a batch's
+frames) are host integers in every step, so it checks them every
+iteration, and `strict_overflow` raises. `save_val_images` writes each
+validation frame's GT | render | 5x|error| strip as a PNG (`save_strip`);
 `profile_trace_dir` takes a `torch.profiler` trace of iterations
 [`profile_start_iter` (10), `profile_stop_iter` (start + 3)) on rank 0
 (`TraceWindow`), where the JAX driver takes a `jax.profiler` trace, with
@@ -570,6 +572,82 @@ def alive_bucket(scene, state) -> int:
         else scene.capacity
 
 
+class TrainLoop:
+    """One subject's training loop: its state, the schedule (from `cfg`),
+    the frame picker, the alive-prefix bucket and the one-shot overflow
+    alarm, and one iteration in two halves, `step` and `after_step`, with
+    validation (when due) between them as the JAX driver orders it.
+    `step_fn` is a `make_train_step` or a sharded step. Frames are popped
+    without replacement from the training frames, refilled when empty,
+    through `np.random.default_rng(seed)` (`gsavatar/train.py:641-652`).
+    `training` drives one loop, `parallel/multi_subject.py` one a subject.
+    The module's functions are looked up when called, so that a caller may
+    replace them."""
+
+    def __init__(self, cfg: dict, scene, state, step_fn, seed: int = 0):
+        opt = cfg['opt']
+        self.cfg, self.scene, self.state, self.step_fn = (cfg, scene, state,
+                                                          step_fn)
+        self.flags = dict(
+            densify_until=int(opt['densify_until_iter']),
+            densify_from=int(opt['densify_from_iter']),
+            densify_interval=int(opt['densification_interval']),
+            opacity_reset_interval=int(opt['opacity_reset_interval']),
+            gauss_delay=int(cfg['model']['gaussian'].get('delay', 0)),
+            white_bg=bool(cfg['dataset'].get('white_background', False)))
+        self.rng = np.random.default_rng(seed)
+        self.frames: list = []
+        self.bucket = alive_bucket(scene, state)
+        self.alarmed = False
+
+    def next_frame(self) -> int:
+        """The index of the next training frame."""
+        if not self.frames:
+            self.frames = list(range(len(self.scene.train_dataset)))
+        return self.frames.pop(int(self.rng.integers(len(self.frames))))
+
+    def step(self, iteration: int, cameras) -> dict:
+        """The loss weights and the densify window of `iteration`, its
+        position learning rate and SH degree, then one step of `step_fn` on
+        `cameras` at the bucket; returns the step's metrics."""
+        weights = loss_weights(self.cfg, iteration)
+        in_window = schedule_flags(iteration, **self.flags)[0]
+        weights['_in_densify_window'] = 1.0 if in_window else 0.0
+        self.state, metrics = self.step_fn(
+            self.state, cameras, iteration, weights,
+            float(self.scene.xyz_lr_fn(iteration)),
+            active_sh_degree=self.scene.active_sh_degree(iteration),
+            bucket=self.bucket)
+        return metrics
+
+    def after_step(self, iteration: int):
+        """Densify and prune when due (one device read for its counts), the
+        new bucket and `refresh_knn` over it, then the opacity reset when
+        due. Returns the round's counts as host integers, None without a
+        round."""
+        _, do_densify, do_reset, use_ss = schedule_flags(iteration,
+                                                         **self.flags)
+        counts = None
+        if do_densify:
+            eps1, eps2 = densify_draws(self.state, iteration)
+            self.state, info = densify_step(self.scene, self.state, eps1,
+                                            eps2, use_ss)
+            counts = {k: int(v) for k, v in zip(info, tracing.device_read(
+                torch.stack(list(info.values()))).tolist())}
+            self.bucket = self.scene.bucket_for(counts['n_alive'])
+            refresh_knn(self.state, self.bucket)
+        if do_reset:
+            opacity_reset_step(self.state)
+        return counts
+
+    def alarm(self, iteration: int, pairs: int, rect: int,
+              quiet: bool = False) -> None:
+        """`overflow_alarm` until it first fires."""
+        if not self.alarmed:
+            self.alarmed = overflow_alarm(self.cfg, iteration, pairs, rect,
+                                          quiet=quiet)
+
+
 def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
              progress: bool = True, device=None):
     """The optimization loop; returns (scene, final state, logger). Runs on
@@ -614,8 +692,7 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
     lead = mesh is None or mesh.rank == 0
     seed = max(int(cfg.get('seed', -1)), 0)
     scene = scene or Scene(cfg, seed=seed, device=device)
-    opt = cfg['opt']
-    iterations = int(max_iterations or opt['iterations'])
+    iterations = int(max_iterations or cfg['opt']['iterations'])
 
     start_checkpoint = cfg.get('start_checkpoint')
     if start_checkpoint:
@@ -646,9 +723,10 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
         step = make_train_step(scene)
     validation = make_validation(scene)
 
-    bucket = alive_bucket(scene, state)
+    # every rank pops the same frames
+    loop = TrainLoop(cfg, scene, state, step, seed)
     if start_checkpoint:
-        refresh_knn(state, bucket)
+        refresh_knn(loop.state, loop.bucket)
 
     checkpoint_iterations = list(cfg.get('checkpoint_iterations') or [])
     checkpoint_iterations.append(iterations)
@@ -656,24 +734,6 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
     test_interval = int(cfg.get('test_interval', 0) or 0)
     test_iterations = set(cfg.get('test_iterations') or [])
     max_val_frames = cfg.get('max_val_frames')
-    overflow_alarmed = False
-    flags = dict(densify_until=int(opt['densify_until_iter']),
-                 densify_from=int(opt['densify_from_iter']),
-                 densify_interval=int(opt['densification_interval']),
-                 opacity_reset_interval=int(opt['opacity_reset_interval']),
-                 gauss_delay=int(cfg['model']['gaussian'].get('delay', 0)),
-                 white_bg=bool(cfg['dataset'].get('white_background',
-                                                   False)))
-
-    # every rank pops the same frames (`gsavatar/train.py:641-652`)
-    rng = np.random.default_rng(seed)
-    data_stack: list = []
-
-    def next_frame_idx():
-        nonlocal data_stack
-        if not data_stack:
-            data_stack = list(range(len(scene.train_dataset)))
-        return data_stack.pop(int(rng.integers(len(data_stack))))
 
     # `profile_trace_dir`: a torch.profiler trace of iterations
     # [profile_start_iter, profile_stop_iter), written by rank 0
@@ -689,54 +749,34 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
         for iteration in range(first_iteration, iterations + 1):
             trace.at(iteration)
             with tracing.unit(iteration, 'train/step'):
-                weights = loss_weights(cfg, iteration)
-                in_window, do_densify, do_reset, use_ss = schedule_flags(
-                    iteration, **flags)
-                weights['_in_densify_window'] = 1.0 if in_window else 0.0
-                xyz_lr = float(scene.xyz_lr_fn(iteration))
-                deg = scene.active_sh_degree(iteration)
-                idxs = [next_frame_idx() for _ in range(batch_frames)]
+                idxs = [loop.next_frame() for _ in range(batch_frames)]
                 if use_mesh:
                     cameras = [scene.device_camera(i, 'train')
                                for i in shard.put_batch(idxs, mesh)]
                 else:
                     cameras = scene.device_camera(idxs[0], 'train')
-                state, metrics = step(state, cameras, iteration, weights,
-                                      xyz_lr, active_sh_degree=deg,
-                                      bucket=bucket)
+                metrics = loop.step(iteration, cameras)
 
                 # validation before densify and the reset, as the JAX driver
                 # does; on every rank (the compositor's ranges), logged by
                 # rank 0
                 if (test_interval > 0 and iteration % test_interval == 0) \
                         or iteration in test_iterations:
-                    validation(state, iteration, logger, exp_dir,
-                               max_val_frames=max_val_frames, bucket=bucket,
-                               quiet=not lead, save_images=save_val_images)
+                    validation(loop.state, iteration, logger, exp_dir,
+                               max_val_frames=max_val_frames,
+                               bucket=loop.bucket, quiet=not lead,
+                               save_images=save_val_images)
                     t0 = time.time()   # validation is not iteration time
 
-                if do_densify:
-                    eps1, eps2 = densify_draws(state, iteration)
-                    state, dinfo = densify_step(scene, state, eps1, eps2,
-                                                use_ss)
-                    dinfo = dict(zip(dinfo, tracing.device_read(torch.stack(
-                        list(dinfo.values()))).tolist()))  # the densify's read
-                    if logger:
-                        logger.log(iteration, {f'densify/{k}': int(v)
-                                               for k, v in dinfo.items()})
-                    bucket = scene.bucket_for(int(dinfo['n_alive']))
-                    refresh_knn(state, bucket)
+                counts = loop.after_step(iteration)
+                if counts and logger:
+                    logger.log(iteration, {f'densify/{k}': v
+                                           for k, v in counts.items()})
 
-                if do_reset:
-                    opacity_reset_step(state)
-
-                # the JAX driver's one-shot alarm; the counts are host
-                # integers (a batch step's, summed over its frames), equal on
-                # every rank
-                if not overflow_alarmed:
-                    overflow_alarmed = overflow_alarm(
-                        cfg, iteration, metrics['overflow/pairs'],
-                        metrics['overflow/rect'], quiet=not lead)
+                # the counts are host integers (a batch step's, summed over
+                # its frames), equal on every rank
+                loop.alarm(iteration, metrics['overflow/pairs'],
+                           metrics['overflow/rect'], quiet=not lead)
                 if logger and (iteration % log_every == 0 or iteration == 1):
                     m = host_metrics(metrics)
                     m['iter_time'] = (time.time() - t0) / log_every * 1000.0
@@ -755,12 +795,12 @@ def training(cfg: dict, scene=None, max_iterations=None, log_every: int = 10,
                         os.path.join(exp_dir, 'point_cloud',
                                      f'iteration_{iteration}',
                                      'point_cloud.ply'),
-                        state.gauss_params, state.gauss_aux)
+                        loop.state.gauss_params, loop.state.gauss_aux)
                 if lead and iteration in checkpoint_iterations:
-                    scene.save_checkpoint(state, iteration, exp_dir)
+                    scene.save_checkpoint(loop.state, iteration, exp_dir)
     trace.at(trace_stop)
 
-    return scene, state, logger
+    return scene, loop.state, logger
 
 
 class TraceWindow:

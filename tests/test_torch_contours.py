@@ -12,6 +12,8 @@ one-pixel and one-row components, and a body-sized blob at 1080x1920."""
 import numpy as np
 import pytest
 
+import torch_dist_workers  # noqa: F401  (torch on one thread)
+
 from gsavatar_torch.utils import contours as C
 from gsavatar_torch.utils import draw
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_workers  # noqa: F401  (torch on one thread)
 import chip_smoke
 from gsavatar_torch.ops import conv_adam
 from gsavatar_torch.ops.conv_adam import (CHUNK, MAX_TENSORS, N_ADAM,

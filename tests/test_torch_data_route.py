@@ -42,8 +42,7 @@ import pytest
 import torch
 
 import torch_dist_workers as workers
-from torch_parity import (STEP_TINY, jax_draws, jax_named,
-                          one_torch_thread)  # noqa: F401
+from torch_parity import STEP_TINY, jax_draws, jax_named
 
 from gsavatar_torch import convert
 from gsavatar_torch import train as ttrain

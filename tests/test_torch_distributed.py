@@ -44,7 +44,6 @@ import torch
 
 import torch_dist_workers as workers
 from torch_parity import (GRID, PAIR_CHUNK, TILES, close, grid_pairs,
-                          one_torch_thread,  # noqa: F401
                           padded_pairs, tile_column_scale)
 
 from gsavatar_torch.ops.rasterizer.composite import (

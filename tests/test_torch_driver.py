@@ -449,3 +449,40 @@ def test_trace_window_starts_and_stops(tmp_path):
     for it in range(1, 5):
         w.at(it)
     assert w.path is None and not list(tmp_path.glob('c*'))
+
+
+# six iterations with a densify at 4 and an opacity reset at 5
+LOOP = ["opt.iterations=6", "opt.densify_from_iter=3",
+        "opt.densification_interval=4", "opt.opacity_reset_interval=5",
+        "opt.densify_grad_threshold=0.0003", "opt.percent_dense=0.005",
+        "opt.opacity_threshold=0.08", "test_interval=0",
+        "checkpoint_iterations=[]", "save_iterations=[]", "seed=0"]
+
+
+def test_train_loop_by_hand_equals_training(tmp_path):
+    """`train.TrainLoop` driven by hand (a frame, `step`, then
+    `after_step`) gives `training`'s logged losses, densify counts and
+    final state bit for bit."""
+    from gsavatar_torch.parallel.shard import state_tensors
+    cfg = t_load_config(TINY + LOOP + [f"exp_dir={tmp_path}"])
+    _, want, logger = ttrain.training(cfg, log_every=1, progress=False,
+                                      device='cpu')
+    scene = TScene(cfg, seed=0, device='cpu')
+    loop = ttrain.TrainLoop(cfg, scene, scene.init_state(),
+                            ttrain.make_train_step(scene), seed=0)
+    losses, alive = {}, {}
+    for it in range(1, 7):
+        metrics = loop.step(it, scene.device_camera(loop.next_frame()))
+        losses[it] = ttrain.host_metrics(metrics)['loss/total_loss']
+        counts = loop.after_step(it)
+        if counts:
+            alive[it] = counts['n_alive']
+    rows = lambda key: {r['step']: r[key] for r in logger.history if key in r}
+    assert losses == rows('loss/total_loss')
+    assert alive == rows('densify/n_alive') and list(alive) == [4]
+    got, ref = state_tensors(loop.state), state_tensors(want)
+    assert set(got) == set(ref)
+    for k in ref:
+        _same(got[k], ref[k], k)
+    assert torch.equal(loop.state.generator.get_state(),
+                       want.generator.get_state())

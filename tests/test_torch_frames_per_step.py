@@ -33,7 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_parity import (STEP_TINY, close, grad_gate, jax_conv_mu,
-                          jax_draws, one_torch_thread)  # noqa: F401
+                          jax_draws)
 
 from gsavatar_torch import convert
 from gsavatar_torch import train as ttrain

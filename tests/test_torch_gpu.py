@@ -48,6 +48,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_workers  # noqa: F401  (torch on one thread)
+
 from gsavatar_torch.camera.camera import make_camera
 from gsavatar_torch.ops import segsum_blocked
 from gsavatar_torch.ops.rasterizer import composite

@@ -6,10 +6,12 @@ it has neither package); the tooling imports without any of them; no module
 builds or imports a GPU toolchain at
 import time, the entry points refuse to run without a GPU unless the
 caller asks for the CPU, and a kernel library's name follows every source
-it is built from."""
+it is built from. The port's test helper puts every test process's torch
+on one thread."""
 import ast
 import importlib
 import json
+import os
 import pkgutil
 import subprocess
 import sys
@@ -17,6 +19,8 @@ from pathlib import Path
 
 import pytest
 import torch
+
+import torch_dist_workers  # noqa: F401  (torch on one thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gsavatar', 'cv2',
@@ -191,3 +195,17 @@ def test_kernel_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
     again = {n: kernels._target(n) for n in names}
     assert again['segsum'] != after['segsum']
     assert again['composite_fwd'] == after['composite_fwd']
+
+
+def test_test_helper_puts_torch_on_one_thread():
+    """Importing tests/torch_dist_workers.py, as every port test module
+    does, leaves this worker's torch on one thread and the thread-count
+    variables at 1 for the processes it starts: a child's torch starts on
+    one thread too."""
+    assert torch.get_num_threads() == 1
+    for var in ('OMP_NUM_THREADS', 'MKL_NUM_THREADS', 'OPENBLAS_NUM_THREADS'):
+        assert os.environ[var] == '1', var
+    out = subprocess.run(
+        [sys.executable, '-c', 'import torch; print(torch.get_num_threads())'],
+        capture_output=True, text=True, check=True, timeout=120)
+    assert out.stdout.strip() == '1'

@@ -24,8 +24,7 @@ import jax.numpy as jnp
 
 from torch_dist_workers import DRIVER
 from torch_parity import (GRID, PAIR_CHUNK, STEP_TINY, TILES, close,
-                          grid_pairs, one_torch_thread,  # noqa: F401
-                          padded_pairs, tile_column_scale)
+                          grid_pairs, padded_pairs, tile_column_scale)
 
 from gsavatar_torch import train as ttrain
 from gsavatar_torch.config import load_config as t_load_config

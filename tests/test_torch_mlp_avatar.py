@@ -36,6 +36,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_dist_workers  # noqa: F401  (torch on one thread)
+
 from gsavatar_torch.config import load_config
 
 ROOT = Path(__file__).resolve().parent.parent

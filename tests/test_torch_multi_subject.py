@@ -34,8 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_parity import (STEP_TINY, carry_state, close, grad_gate,
-                          jax_conv_mu, jax_draws, one_torch_thread,  # noqa
-                          to_np)
+                          jax_conv_mu, jax_draws, to_np)
 
 from gsavatar_torch import convert
 from gsavatar_torch import train as ttrain

@@ -17,6 +17,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import torch_dist_workers  # noqa: F401  (torch on one thread)
+
 from gsavatar_torch.tools import profile_narrow_dma as K4
 
 ROOT = Path(__file__).resolve().parent.parent

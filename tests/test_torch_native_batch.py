@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import one_torch_thread, smooth_frame  # noqa: F401
+from torch_parity import smooth_frame
 
 from gsavatar_torch import native
 from gsavatar_torch.data import zju_format

@@ -9,6 +9,8 @@ import pytest
 import zlib
 from PIL import Image
 
+import torch_dist_workers  # noqa: F401  (torch on one thread)
+
 from gsavatar_torch.utils import png
 
 rng = np.random.default_rng(0)

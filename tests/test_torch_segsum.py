@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_workers  # noqa: F401  (torch on one thread)
+
 from gsavatar_torch.ops import segsum as tseg
 from gsavatar_torch.ops.segsum_blocked import (
     CHUNK_ROWS, SMALL_CHUNK_ROWS, SMALL_ROWS, carry_records, chunk_rows,

@@ -36,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import one_torch_thread  # noqa: F401
+import torch_dist_workers  # noqa: F401  (torch on one thread)
 
 from gsavatar_torch.smpl import tools as ttools
 from gsavatar_torch.smpl.body_model import synthetic_assets as t_assets

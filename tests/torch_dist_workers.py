@@ -1,8 +1,16 @@
-"""The ranks of the port's multi-process tests (tests/test_torch_mesh.py,
+"""The port's test helper that every `test_torch_*` module imports, and
+the ranks of its multi-process tests (tests/test_torch_mesh.py,
 tests/test_torch_distributed.py), started with
 `torch.multiprocessing.spawn` by `spawn`. A rank imports no JAX: the JAX
 side of a comparison runs in the test process, which hands the ranks their
-inputs and reads their results as files under `out`."""
+inputs and reads their results as files under `out`.
+
+Importing it puts the process's torch CPU work on one thread, and sets
+the thread-count variables of OpenMP, MKL and OpenBLAS to 1 in the
+environment, which the processes it starts (ranks, subprocesses) inherit:
+the test workers share the machine's cores, and torch's pool in each,
+sized to every core and oversubscribed by the others, runs the tests'
+small tensors tens of times slower than one thread does."""
 from __future__ import annotations
 
 import os
@@ -11,6 +19,10 @@ import time
 
 import torch
 import torch.multiprocessing as mp
+
+os.environ.update(OMP_NUM_THREADS='1', MKL_NUM_THREADS='1',
+                  OPENBLAS_NUM_THREADS='1')
+torch.set_num_threads(1)
 
 # the shape of the step parity tests: tests/test_train_e2e.py's avatar
 # (64x64, 768 Gaussians in 1024 slots) with a small skinning pool
@@ -49,7 +61,6 @@ def spawn(job: str, world: int, out, args=(), timeout: float = 300.0,
 def rank_main(rank, world, port, env, job, out, args):
     import torch.distributed as dist
     from gsavatar_torch.parallel.mesh import initialize_distributed
-    torch.set_num_threads(1)
     if env:
         os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
                           RANK=str(rank), WORLD_SIZE=str(world))

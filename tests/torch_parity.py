@@ -10,7 +10,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 TINY = [
@@ -150,20 +149,9 @@ def jax_draws(rng, rots_shape, n_reg, pool_size, pose_noise, view_noise,
     return rng, out
 
 
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """The port's CPU work of a test module on one thread (a module that
-    imports this fixture uses it): the test workers share the cores, and
-    torch's thread pool, oversubscribed by them, runs the tiny steps about
-    a hundred times slower than one thread does."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # the shape of the step parity tests, defined beside the multi-process
-# tests' ranks, which import no JAX
+# tests' ranks, which import no JAX (the import also puts torch on one
+# thread)
 from torch_dist_workers import STEP_TINY  # noqa: E402,F401
 
 
